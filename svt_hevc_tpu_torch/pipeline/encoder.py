@@ -1,0 +1,621 @@
+"""Encoder pipeline on the card: frames -> Annex-B HEVC byte stream.
+
+Port of svt_hevc_tpu/pipeline/encoder.py for the slice this package
+covers: CQP, low-delay P (IPPP, and its hierarchical form), one
+reference per picture, 8-bit 4:2:0, one tile,
+presets whose P pictures carry no intra CUs (M6-M7, M10-M11). I pictures
+take gpu.encode.fast_i_fused_dev, P pictures gpu.me.hme_search then
+gpu.encode.fast_p_fused_dev; the host walk and the native emitter write
+the syntax. Reconstructions stay on the device as the next picture's
+reference (the device DPB), each picture's decided motion stays on the
+device as the next picture's TMVP source, and a picture's download and
+host walk overlap the next picture's device work (one frame deep).
+
+A configuration outside the slice raises NotImplementedError; there is
+no host CTU path to fall back to.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..bitstream import sei
+from ..bitstream.cabac import CabacEncoder
+from ..bitstream.contexts import init_contexts
+from ..bitstream.headers import (write_pps, write_slice_header, write_sps,
+                                 write_vps)
+from ..bitstream.nal import NalUnitType, wrap_nal
+from ..bitstream.recorder import CabacRecorder
+from ..config import EncoderConfig
+from ..core.ctu import PictureState
+from ..core.sao import encode_sao_ctb
+from ..io.yuv import Frame
+from ..native import cabac_encode_ops
+from ..preset import derive_preset
+
+
+def pad_plane(plane: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Edge-replicate a plane to coded dimensions."""
+    out = np.empty((h, w), np.int32)
+    ph, pw = plane.shape
+    out[:ph, :pw] = plane
+    if pw < w:
+        out[:ph, pw:] = plane[:, -1:]
+    if ph < h:
+        out[ph:, :] = out[ph - 1:ph, :]
+    return out
+
+
+def finalize_cabac(rec: CabacRecorder, init_ctx: list[int]) -> bytes:
+    """Arithmetic-code a recorded op stream: native C core when available,
+    else replay through the Python reference backend (bit-identical)."""
+    data = cabac_encode_ops(rec.op_array(), init_ctx)
+    if data is not None:
+        return data
+    enc = CabacEncoder(list(init_ctx))
+    for kind, a, v in rec.iter_ops():
+        if kind == 0:
+            enc.encode_bin(a, v)
+        elif kind == 1:
+            enc.encode_bypass(v)
+        elif kind == 2:
+            enc.encode_bypass_bins(v, a)
+        else:
+            enc.encode_terminate(v)
+    enc.finish()
+    return enc.data
+
+
+def slice_unsupported(cfg: EncoderConfig) -> str | None:
+    """Why cfg lies outside the ported slice (naming the later slice that
+    brings it), or None when this package encodes it."""
+    feat = derive_preset(cfg.enc_mode)
+    checks = (
+        (cfg.pred_structure != 0,
+         "B pictures and random access (pred_structure 1/2) come with the "
+         "B-picture slice"),
+        (cfg.tile_columns * cfg.tile_rows != 1
+         or cfg.constrained_motion_tiles,
+         "tiles come with the multi-device slice"),
+        (cfg.chroma_format != 1, "4:2:2 / 4:4:4 are not ported"),
+        (cfg.bit_depth != 8,
+         "10-bit encodes come with the 10-bit full-path slice"),
+        (feat.rd_mode_decision or not feat.ois_intra,
+         f"preset M{cfg.enc_mode} uses the RD host path (M0-M5), not ported"),
+        (feat.p_min_intra_log2 < 6,
+         f"preset M{cfg.enc_mode} puts intra CUs in P pictures; that comes "
+         "with the intra-in-P slice (M8-M9)"),
+        (cfg.rate_control_mode != 0,
+         "rate control other than CQP comes with the API slice"),
+        (cfg.enable_denoise, "denoising comes with the device-helpers slice"),
+        (cfg.adaptive_qp,
+         "adaptive QP (QPM / segment overrides) comes with the "
+         "device-helpers slice"),
+        (cfg.constrained_intra,
+         "constrained intra comes with the intra-in-P slice"),
+        (cfg.mesh_pictures,
+         "mesh picture parallelism comes with the multi-device slice"),
+    )
+    for bad, why in checks:
+        if bad:
+            return why
+    return None
+
+
+class _LazyPlanes:
+    """List-like [y, cb, cr] post-filter recon planes (coded dims, int32)
+    downloaded from the device tensors on first access."""
+
+    def __init__(self, rec_dev, cw: int, ch: int):
+        self._dev = rec_dev
+        self._cw, self._ch = cw, ch
+        self._v = None
+
+    def _get(self):
+        if self._v is None:
+            y, cb, cr = (p.cpu().numpy() for p in self._dev)
+            cw, ch = self._cw, self._ch
+            self._v = [y[:ch, :cw].astype(np.int32),
+                       cb[:ch // 2, :cw // 2].astype(np.int32),
+                       cr[:ch // 2, :cw // 2].astype(np.int32)]
+        return self._v
+
+    def __getitem__(self, i):
+        return self._get()[i]
+
+    def __iter__(self):
+        return iter(self._get())
+
+    def __len__(self):
+        return 3
+
+
+class _LazyFrame:
+    """Frame-like recon view over _LazyPlanes: materializes a real Frame
+    (display crop + dtype) on first attribute access."""
+
+    def __init__(self, planes: _LazyPlanes, w: int, h: int, wc: int,
+                 hc: int, dt):
+        object.__setattr__(self, "_spec", (planes, w, h, wc, hc, dt))
+        object.__setattr__(self, "_frame", None)
+
+    def _materialize(self) -> Frame:
+        if self._frame is None:
+            planes, w, h, wc, hc, dt = self._spec
+            object.__setattr__(self, "_frame", Frame(
+                y=planes[0][:h, :w].astype(dt),
+                cb=planes[1][:hc, :wc].astype(dt),
+                cr=planes[2][:hc, :wc].astype(dt)))
+        return self._frame
+
+    def __getattr__(self, name):
+        return getattr(self._materialize(), name)
+
+
+@dataclass
+class EncodedPicture:
+    nal_bytes: bytes          # slice NAL (Annex-B)
+    recon: Frame              # cropped reconstruction (possibly lazy)
+    poc: int = 0
+    ref_planes: list | None = None   # full-plane post-filter recon (DPB)
+
+
+@dataclass
+class PendingPicture:
+    """A dispatched-but-not-finalized picture: its device work is queued;
+    recon/DPB handles already exist so the NEXT frame can be dispatched
+    against it, and finish() downloads + walks + assembles the
+    bitstream."""
+    poc: int
+    recon: object
+    ref_planes: object
+    _finish: object
+    _pic: EncodedPicture | None = None
+
+    def finish(self) -> EncodedPicture:
+        if self._pic is None:
+            self._pic = self._finish()
+        return self._pic
+
+
+@dataclass
+class EncodedAu:
+    """One coded access unit from the streaming API."""
+
+    data: bytes               # slice NAL(s) + per-AU SEI (Annex-B)
+    recon: Frame
+    poc: int
+    slice_type: int           # 2 I, 1 P
+    is_idr: bool
+    display_idx: int
+    decode_idx: int
+
+
+class Encoder:
+    """HEVC encoder (CQP, IPPP) whose pixel stages run on the card.
+
+    device: None (the default) runs on torch.device("cuda") and raises
+    where there is no CUDA device; "cpu" runs every stage with the
+    kernels' plain PyTorch versions (the tests' mode)."""
+
+    def __init__(self, cfg: EncoderConfig, device=None):
+        self.cfg = cfg.validate()
+        why = slice_unsupported(self.cfg)
+        if why is not None:
+            raise NotImplementedError(why)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device available; pass device='cpu' to run "
+                    "the encoder on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        self._frame_idx = 0
+        self._ref_planes = None      # previous picture planes (post-filter)
+        self._ref_poc = 0
+        # (poc, w64, h64) -> device (y, cb, cr) padded int32 reference
+        # planes, so P pictures never re-upload references
+        self._dev_dpb: dict = {}
+        # poc -> motion field of coded reference pictures (TMVP
+        # collocated data for the host syntax walk)
+        self._ref_motion: dict = {}
+        # (poc, w64, h64) -> (col16_mv, col16_valid, ref_poc_l0) device
+        # tensors: each picture's decided motion, 16x16-compressed, chained
+        # into the next picture's dense MD as the TMVP merge candidate
+        self._dev_motion: dict = {}
+        self._dev_motion_cap = 6
+        self._poc_base = 0
+        self.last_rc = None
+
+    def _col_for(self, col_poc):
+        """Collocated motion dict for TMVP, or None. A missing entry for a
+        requested collocated POC is an encoder ordering bug."""
+        if col_poc is None:
+            return None
+        ent = self._ref_motion.get(col_poc)
+        if ent is None:
+            raise RuntimeError(
+                f"TMVP collocated motion for POC {col_poc} not registered "
+                "(motion-registration/flush ordering bug)")
+        return dict(ent, from_l0=True)
+
+    def _frame_is_idr(self, idx: int) -> bool:
+        ip = self.cfg.intra_period
+        if idx == 0 or ip == 0:
+            return True
+        if ip < 0:
+            return False
+        return idx % (ip + 1) == 0
+
+    @staticmethod
+    def _scene_cut(prev_y: np.ndarray, cur_y: np.ndarray) -> bool:
+        """Region-histogram scene-change detector."""
+        h, w = cur_y.shape
+        rh, rw = max(h // 4, 1), max(w // 4, 1)
+        votes = 0
+        regions = 0
+        shift = 3 if cur_y.dtype == np.uint8 else 5   # 32 histogram bins
+        for ry in range(0, h - rh + 1, rh):
+            for rx in range(0, w - rw + 1, rw):
+                a = np.bincount(prev_y[ry:ry + rh, rx:rx + rw].ravel() >> shift,
+                                minlength=32)
+                b = np.bincount(cur_y[ry:ry + rh, rx:rx + rw].ravel() >> shift,
+                                minlength=32)
+                ahd = np.abs(a - b).sum()
+                regions += 1
+                if ahd > 0.6 * rh * rw:
+                    votes += 1
+        return regions > 0 and votes > regions // 2
+
+    def headers(self) -> bytes:
+        cfg = self.cfg
+        out = (wrap_nal(NalUnitType.VPS_NUT, write_vps(cfg))
+               + wrap_nal(NalUnitType.SPS_NUT, write_sps(cfg))
+               + wrap_nal(NalUnitType.PPS_NUT, write_pps(cfg)))
+        msgs = [sei.write_active_parameter_sets()]
+        if cfg.max_cll or cfg.max_fall:
+            msgs.append(sei.write_content_light_level(cfg.max_cll, cfg.max_fall))
+        if cfg.mastering_display is not None:
+            md = cfg.mastering_display
+            msgs.append(sei.write_mastering_display(
+                [(md[0], md[1]), (md[2], md[3]), (md[4], md[5])],
+                (md[6], md[7]), md[8], md[9]))
+        if cfg.use_recovery_point_sei:
+            msgs.append(sei.write_recovery_point(0))
+        out += wrap_nal(NalUnitType.PREFIX_SEI_NUT, sei.sei_rbsp(msgs))
+        return out
+
+    def _hrd_sei(self, is_idr: bool, dpb_output_delay: int = 0) -> bytes:
+        """Per-AU HRD timing SEIs: buffering_period at each IDR,
+        pic_timing on every picture."""
+        from ..bitstream.headers import hrd_rate_size
+        msgs = []
+        if is_idr or not hasattr(self, "_au_since_bp"):
+            rate, size = hrd_rate_size(self.cfg)
+            delay = int(90000 * 0.9 * size / rate)
+            offset = int(90000 * size / rate) - delay
+            msgs.append(sei.write_buffering_period(delay, offset))
+            self._au_since_bp = 0
+        msgs.append(sei.write_pic_timing(max(self._au_since_bp - 1, 0),
+                                         dpb_output_delay))
+        self._au_since_bp += 1
+        return wrap_nal(NalUnitType.PREFIX_SEI_NUT, sei.sei_rbsp(msgs))
+
+    def encode_frame(self, frame: Frame, *, is_idr: bool | None = None,
+                     poc: int = 0, qp: int | None = None, refs_l0=None,
+                     non_ref: bool = False, retain_pocs=None,
+                     pipelined: bool = False):
+        """Encode one picture: an IDR when is_idr, else a P picture.
+        refs_l0: [(planes, poc)], the one list-0 reference (None: the
+        previous picture). non_ref: a picture no other picture references
+        (TRAIL_N; kept out of the device DPB and the TMVP caches).
+        retain_pocs: POCs that future pictures still reference, signalled
+        in the RPS with used_by_curr_pic=0. Returns an EncodedPicture, or
+        a PendingPicture when pipelined."""
+        from ..gpu import encode as genc
+        from ..gpu.me import hme_search
+        from .fast_path import run_fast_i, run_fast_p
+
+        cfg = self.cfg
+        if frame.segment_ov is not None:
+            raise NotImplementedError(
+                "per-CTB segment overrides come with the device-helpers "
+                "slice")
+        feat = derive_preset(cfg.enc_mode)
+        if is_idr is None:
+            is_idr = self._ref_planes is None and refs_l0 is None
+        if qp is None:
+            qp = cfg.qp
+        slice_type = 2 if is_idr else 1
+        if is_idr:
+            refs_l0 = None
+        elif refs_l0 is None:
+            refs_l0 = [(self._ref_planes, self._ref_poc)]
+        init_type = {2: 0, 1: 1}[slice_type]
+        # TMVP collocated picture: list-0 ref 0
+        col_poc = refs_l0[0][1] if cfg.tmvp and not is_idr else None
+        cw, ch = cfg.coded_width, cfg.coded_height
+        cw_c, ch_c = cw // cfg.sub_width_c, ch // cfg.sub_height_c
+        src = [
+            pad_plane(frame.y.astype(np.int32), cw, ch),
+            pad_plane(frame.cb.astype(np.int32), cw_c, ch_c),
+            pad_plane(frame.cr.astype(np.int32), cw_c, ch_c),
+        ]
+        ctb = cfg.ctb_size
+        n_ctb_x = (cw + ctb - 1) // ctb
+        n_ctb_y = (ch + ctb - 1) // ctb
+        order = [(cx * ctb, cy * ctb) for cy in range(n_ctb_y)
+                 for cx in range(n_ctb_x)]
+        last_xy = order[-1]
+
+        st = PictureState(cw, ch, qp, cfg.ctb_log2, cfg.bit_depth,
+                          chroma_format=cfg.chroma_format)
+        st.constrained_intra = cfg.constrained_intra
+        st.max_tt_depth_inter = 2     # matches the SPS (write_sps)
+        if not is_idr:
+            st.slice_type = slice_type
+            st.ref_planes = [[r[0] for r in refs_l0], []]
+            st.ref_pocs = [[r[1] for r in refs_l0], []]
+            st.poc = poc
+
+        # ---- device context: ship the source once (uint8), keep the
+        # reference planes device-resident between frames
+        w64, h64 = (cw + 63) // 64 * 64, (ch + 63) // 64 * 64
+        dt = np.uint8
+        kind = "i" if is_idr else "p"
+        with genc.stage(f"{kind}.upload"):
+            src_dev = genc.prep_planes(frame.y, frame.cb, frame.cr, w64, h64,
+                                       self.device)
+        if is_idr:
+            packed, rec_dev, mot_dev, lv_dev = run_fast_i(
+                cfg, feat, st, qp, src_dev)
+        else:
+            ref_dev = self._dev_dpb.get((refs_l0[0][1], w64, h64))
+            if ref_dev is None:
+                rp = refs_l0[0][0]
+                ref_dev = genc.prep_planes(rp[0].astype(dt), rp[1].astype(dt),
+                                           rp[2].astype(dt), w64, h64,
+                                           self.device)
+            with genc.stage("p.hme_search"):
+                mv_dev = hme_search(src_dev[0], ref_dev[0])[0]
+            # device-resident TMVP collocated motion of the L0 reference
+            # + its POC distances (8.5.3.2.8 tb/td)
+            col_ent = (self._dev_motion.get((col_poc, w64, h64))
+                       if col_poc is not None else None)
+            col_dev = None
+            tb = td = 1
+            if col_ent is not None:
+                col_dev = (col_ent[0], col_ent[1])
+                tb = poc - refs_l0[0][1]
+                td = (col_poc - col_ent[2]
+                      if col_ent[2] is not None else tb)
+            packed, rec_dev, mot_dev, lv_dev = run_fast_p(
+                cfg, feat, st, qp, mv_dev, src_dev, ref_dev, col_dev, tb, td)
+        if not non_ref:
+            if is_idr:
+                self._dev_motion.clear()
+            self._dev_motion[(poc, w64, h64)] = (
+                mot_dev[0], mot_dev[1], None if is_idr else refs_l0[0][1])
+            while len(self._dev_motion) > self._dev_motion_cap:
+                del self._dev_motion[next(iter(self._dev_motion))]
+
+        all_ref_pocs = {r[1] for r in (refs_l0 or [])}
+        keep = set(retain_pocs or ()) | all_ref_pocs
+        keep.discard(poc)
+        negs = [(poc - rp, int(rp in all_ref_pocs))
+                for rp in sorted((p for p in keep if p < poc),
+                                 reverse=True)]
+        poss = [(rp - poc, int(rp in all_ref_pocs))
+                for rp in sorted(p for p in keep if p > poc)]
+        nal_type = (NalUnitType.IDR_W_RADL if is_idr
+                    else NalUnitType.TRAIL_N if non_ref
+                    else NalUnitType.TRAIL_R)
+
+        # ---- DPB update at dispatch time: the device recon becomes the
+        # next reference directly; host views download lazily
+        hc, wc = frame.cb.shape
+        if is_idr:
+            self._dev_dpb.clear()
+        if not non_ref:
+            self._dev_dpb[(poc, w64, h64)] = rec_dev
+            while len(self._dev_dpb) > 6:
+                del self._dev_dpb[next(iter(self._dev_dpb))]
+        lazy = _LazyPlanes(rec_dev, cw, ch)
+        self._ref_planes = lazy
+        self._ref_poc = poc
+        recon = _LazyFrame(lazy, frame.width, frame.height, wc, hc, dt)
+        ref_planes = self._ref_planes
+
+        def _complete() -> EncodedPicture:
+            # fetch the packed device buffer, walk, CABAC. The collocated
+            # motion binds HERE: the previous frame's walk has finished by
+            # completion order.
+            st.col = self._col_for(col_poc)
+            from .fast_path import complete_fast
+            with genc.stage(f"{kind}.download"):
+                maps, sao_np = complete_fast(cfg, st, packed, lv_dev=lv_dev)
+            with genc.stage(f"{kind}.host_emit"):
+                substr = self._encode_fast(st, src, maps, sao_np, qp, feat,
+                                           order, last_xy, init_type)
+            if cfg.tmvp and not non_ref:
+                # this picture's final motion field is a future TMVP
+                # collocated source
+                self._ref_motion[poc] = {
+                    "mv": st.mv[::4, ::4].copy(),     # 16x16 compression
+                    "ref_idx": st.ref_idx[::4, ::4].copy(),
+                    "ref_pocs": [list(st.ref_pocs[0]),
+                                 list(st.ref_pocs[1])],
+                    "poc": poc}
+                for k in [k for k in self._ref_motion
+                          if abs(k - poc) > 64]:
+                    del self._ref_motion[k]
+            payload = b"".join(substr)
+            w = write_slice_header(cfg, slice_qp=qp, is_idr=is_idr,
+                                   poc=poc, slice_type=slice_type,
+                                   entry_points=[], neg_deltas=negs,
+                                   pos_deltas=poss, irap=is_idr)
+            w.write_bytes(payload)
+            nal = wrap_nal(nal_type, w.get_bytes())
+
+            # per-picture metadata: prefix user-data SEIs before the
+            # slice, Dolby Vision RPU as NAL 62 after it
+            pre_msgs = []
+            if frame.sei_t35 is not None:
+                pre_msgs.append(sei.write_user_data_registered(
+                    frame.sei_t35))
+            if frame.sei_unreg is not None:
+                pre_msgs.append(sei.write_user_data_unregistered(
+                    frame.sei_unreg[0], frame.sei_unreg[1]))
+            out = nal
+            if pre_msgs:
+                out = wrap_nal(NalUnitType.PREFIX_SEI_NUT,
+                               sei.sei_rbsp(pre_msgs)) + out
+            if cfg.dolby_vision_profile == 81 and frame.dv_rpu:
+                out += wrap_nal(NalUnitType.UNSPEC62, frame.dv_rpu)
+            pic = EncodedPicture(nal_bytes=out, recon=recon, poc=poc)
+            pic.ref_planes = ref_planes
+            return pic
+
+        if pipelined:
+            return PendingPicture(poc=poc, recon=recon,
+                                  ref_planes=ref_planes, _finish=_complete)
+        return _complete()
+
+    def encode(self, frames, *, frame_qps=None) -> tuple[bytes, list]:
+        """Encode an iterable of frames; returns (annex_b_stream, recons in
+        display order). frame_qps: optional per-frame QP list."""
+        chunks = [self.headers()]
+        recons = []
+        for au in self.encode_pictures(frames, frame_qps=frame_qps):
+            chunks.append(au.data)
+            recons.append(au.recon)
+        if self.cfg.code_eos_nal:
+            chunks.append(wrap_nal(NalUnitType.EOS_NUT, b""))
+        return b"".join(chunks), recons
+
+    def encode_pictures(self, frames, *, frame_qps=None):
+        """Streaming form of encode(): yields one EncodedAu per picture in
+        decode order, without the parameter-set headers."""
+        from .rate_control import RateControl
+        # a new stream never motion-compensates against a previous
+        # stream's device-resident references
+        self._dev_dpb.clear()
+        self._ref_motion.clear()
+        rc = RateControl(self.cfg)
+        self.last_rc = rc
+        prev_y = None
+        pending = None
+        # hierarchical low-delay P: layer-L pictures reference the most
+        # recent lower-layer picture, top-layer pictures are
+        # non-referenced (TRAIL_N), and CQP adds per-layer QP offsets
+        hl = self.cfg.hierarchical_levels
+        ll_last: dict[int, tuple] = {}
+
+        def _emit(res, meta):
+            pic = res.finish() if isinstance(res, PendingPicture) else res
+            m_idx, m_idr, m_stype, m_qp = meta
+            data = pic.nal_bytes
+            # strict-CBR filler: pad the AU so the VBV cannot overflow
+            fill = rc.filler_bits(8 * len(data))
+            if fill >= 16 * 8:
+                nbytes = fill // 8 - 7   # NAL overhead
+                data += wrap_nal(NalUnitType.FD_NUT,
+                                 b"\xff" * nbytes + b"\x80")
+            rc.update(8 * len(data), m_qp)
+            if self.cfg.enable_hrd:
+                data = self._hrd_sei(m_idr) + data
+            return EncodedAu(data=data, recon=pic.recon, poc=pic.poc,
+                             slice_type=m_stype, is_idr=m_idr,
+                             display_idx=m_idx, decode_idx=m_idx)
+
+        for fr in frames:
+            idx = self._frame_idx
+            self._frame_idx += 1
+            is_idr = self._frame_is_idr(idx)
+            if (not is_idr and self.cfg.scene_change_detection
+                    and prev_y is not None
+                    and self._scene_cut(prev_y, np.asarray(fr.y))):
+                is_idr = True
+            prev_y = np.asarray(fr.y)
+            if is_idr:
+                self._ref_planes = None
+                self._poc_base = idx
+                ll_last.clear()
+            rel = idx - self._poc_base
+            pos = rel % (1 << hl) if hl else 0
+            layer = 0 if pos == 0 else hl - ((pos & -pos).bit_length() - 1)
+            non_ref = hl > 0 and layer == hl
+            refs_l0 = None
+            if hl > 0 and not is_idr:
+                lower = [e for lv, e in ll_last.items() if lv < max(layer, 1)]
+                ref = max(lower, key=lambda e: e[0])
+                refs_l0 = [(ref[1], ref[2])]
+            if frame_qps is not None and idx < len(frame_qps):
+                qp = int(frame_qps[idx])
+            else:
+                qp = rc.pick_qp(is_idr, window=None, layer=layer)
+                if rc.mode == 0 and layer > 0:
+                    qp = min(qp + layer + 1, 51)
+            qp = min(max(qp, self.cfg.min_qp_allowed),
+                     self.cfg.max_qp_allowed)
+            # every layer's most recent picture can still be referenced by
+            # later pictures: keep them alive in the decoder's DPB
+            retain = {e[2] for e in ll_last.values()}
+            stype = 2 if is_idr else 1
+            meta = (idx, is_idr, stype, qp)
+            # one-frame-deep pipelining: dispatch this frame's device work
+            # before finalizing the previous frame, so the host walk
+            # overlaps the device compute + download
+            res = self.encode_frame(fr, is_idr=is_idr, poc=rel, qp=qp,
+                                    refs_l0=refs_l0, non_ref=non_ref,
+                                    retain_pocs=retain, pipelined=True)
+            if hl > 0 and (layer < hl or is_idr):
+                ll_last[0 if is_idr else layer] = (idx, res.ref_planes, rel)
+            if pending is not None:
+                yield _emit(*pending)
+            pending = (res, meta)
+        if pending is not None:
+            yield _emit(*pending)
+
+    def _encode_fast(self, st, src, maps, sao_np, qp, feat, order, last_xy,
+                     init_type) -> list[bytes]:
+        """Host half shared by I and P pictures: the native emitter (one C
+        call: merge/AMVP/MPM legality from the maps, every bin, the
+        arithmetic coder), else the Python walk recording bin ops from the
+        device maps plus one CABAC run. Returns the slice substreams."""
+        from .fast_path import FastCtuEncoder, sao_grid_from_arrays
+        from .native_emit import emit_tile_native
+        cfg = self.cfg
+        data = emit_tile_native(
+            cfg, st, maps, sao_np if cfg.enable_sao else None, qp,
+            init_type, last_ctb=(last_xy[0] >> cfg.ctb_log2,
+                                 last_xy[1] >> cfg.ctb_log2))
+        if data is not None:
+            return [data]
+        walker = FastCtuEncoder(st, None, src, maps, features=feat)
+        ctu_ops = []
+        st.begin_tile()
+        for x0, y0 in order:
+            rec = CabacRecorder()
+            walker.bac = rec
+            walker.code_ctu(x0, y0)
+            ctu_ops.append(rec)
+
+        sao_grid = None
+        if cfg.enable_sao:
+            ny = (st.h + cfg.ctb_size - 1) // cfg.ctb_size
+            nx = (st.w + cfg.ctb_size - 1) // cfg.ctb_size
+            sao_grid = sao_grid_from_arrays(sao_np, ny, nx)
+
+        ctb = cfg.ctb_size
+        bac = CabacRecorder(init_contexts(qp, init_type=init_type))
+        for i, (x0, y0) in enumerate(order):
+            if sao_grid is not None:
+                encode_sao_ctb(bac, sao_grid, x0 // ctb, y0 // ctb,
+                               True, True, bit_depth=cfg.bit_depth)
+            bac.extend_from(ctu_ops[i])
+            bac.encode_terminate(1 if (x0, y0) == last_xy else 0)
+        return [finalize_cabac(bac, init_contexts(qp, init_type=init_type))]
