@@ -4,11 +4,17 @@
 
 Phases (one line each, with seconds; any failure exits nonzero):
   1. card      name / power limit (nvidia-smi) and versions
-  2. build     nvcc builds of the CUDA kernels (csrc/), all at once, and
+  2. build     nvcc builds of the CUDA kernels (csrc/), all at once, with
+               each kernel's registers, shared memory and spills, and
                the native host emitter (native/*.c, the system compiler)
   3. kernels   every kernel against its plain PyTorch version on the
-               card at the 1080p main-path shapes (torch.equal), with
-               CUDA-event times, the plain version's time and the bound
+               card at the 1080p main-path shapes (torch.equal), the
+               batched K2 shapes the callers use included, with two
+               times per variant: device_ms, the kernel's time (CUDA
+               events around R_LAUNCHES back-to-back launches, over R),
+               and call_ms, the host-inclusive time of one wrapper call
+               (what a launch-bound caller pays); the plain version's
+               device time and the bound beside them
   4. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
                the CPU: streams byte-identical, equal to the reference
                sha256, decoded by the port's decoder to the recon
@@ -41,6 +47,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SMALL_SHA256 = \
     "31a6c0ca5957f609b9a27937e71866293ef65cd017382cedc71b48c29ead7cf3"
 SMALL_BYTES = 19785
+
+# launches per device-time sample (CUDA events around a run of many
+# launches)
+R_LAUNCHES = 200
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and non-tensor fp32 rate;
 # int32 multiply-adds are counted at the fp32 rate (no lower bound is
@@ -83,8 +93,38 @@ def make_frames(n, w, h, seed=7):
     return frames
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() over reps runs, by CUDA events."""
+def device_ms(fn, reps: int = R_LAUNCHES) -> float:
+    """Device milliseconds of one fn() call: after a warm-up call, one
+    CUDA-event pair around `reps` back-to-back calls, over reps. A sleep
+    kernel queued first holds the device until the host has queued every
+    call, so the calls' host time does not enter; if the start event has
+    already run when the last call is queued, the sleep was too short and
+    the run is repeated with a longer one."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 25
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        ahead = not a.query()
+        b.synchronize()
+        if ahead:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    raise SystemExit("FAIL: the host cannot queue the timed calls ahead "
+                     "of the device")
+
+
+def call_ms(fn, reps: int) -> float:
+    """Host-inclusive milliseconds of one fn() call: the median over reps
+    of an event pair around a single call, each followed by a
+    synchronize, so the span holds the wrapper's host work too."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -134,6 +174,11 @@ def phase_build():
     from svt_hevc_tpu_torch.pipeline.native_emit import native_emit_available
     t0 = time.perf_counter()
     secs = kernels.build_all()
+    for k in kernels.KERNELS:
+        rows = kernels.ptxas_summary(k.build_log)
+        check(bool(rows), f"{k.source}: no ptxas report in the build log")
+        for row in rows:
+            log(f"  {k.source} {row}")
     # without the C emitter the host walk falls back to the Python one:
     # the same bytes, but every time below would time that slower path
     check(native_emit_available(),
@@ -151,106 +196,200 @@ def _kernel_inputs(dev):
     return [genc.prep_planes(f.y, f.cb, f.cr, 1920, 1088, dev) for f in fr]
 
 
+def k1_levels(planes):
+    """K1's inputs at the three hme_search levels: (name, src, ref, r)."""
+    from svt_hevc_tpu_torch.gpu.me import _decimate2
+    (y0, _, _), (y1, _, _) = planes
+    s0, r0 = y1.float(), y0.float()
+    s1, r1 = _decimate2(s0), _decimate2(r0)
+    s2, r2 = _decimate2(s1), _decimate2(r1)
+    return [("level2", s2, r2, 8), ("level1", s1, r1, 4),
+            ("level0", s0, r0, 4)]
+
+
+def k1_work(src, r):
+    """(bytes, operations) K1 must move and do: src and ref read once,
+    the field written once; sub, abs, add per sample and displacement."""
+    h, w = src.shape
+    s2n = (2 * r + 1) ** 2
+    return 4 * (2 * h * w + s2n * (h // 16) * (w // 16)), 3.0 * h * w * s2n
+
+
+def k2_fields(k, nby, nbx, seed=5):
+    """(k, nby, nbx, 2) int32 MV fields over the whole range: random,
+    exactly at the clamp (+-(PAD-9)*4) and beyond it."""
+    from svt_hevc_tpu_torch.gpu import encode as genc
+    rng = np.random.default_rng(seed)
+    lim = (genc.PAD - 9) * 4
+    mv = rng.integers(-lim - 64, lim + 65, (k, nby, nbx, 2)).astype(np.int32)
+    mv[:, 0, :, :] = lim
+    mv[:, -1, :, :] = -lim
+    mv[:, :, 0, 0] = lim + 40
+    mv[:, :, -1, 1] = -lim - 40
+    return mv
+
+
+def k2_work(ext, maps, n, taps):
+    """(bytes, operations) of one K2 call: every plane read once, the four
+    maps read once, the int32 output written once; the multiply-adds of
+    both passes at two operations each."""
+    n_planes = ext.shape[0] if ext.dim() == 3 else 1
+    hp, wp = ext.shape[-2:]
+    n_fields = maps[0].shape[0] if maps[0].dim() == 3 else 1
+    nby, nbx = maps[0].shape[-2:]
+    nb = nby * nbx
+    m = n + taps - 1
+    outs = n_planes * n_fields * nb * n * n
+    nbytes = 4 * (n_planes * hp * wp + 4 * n_fields * nb + outs)
+    return nbytes, 2.0 * n_planes * n_fields * nb * taps * (m * n + n * n)
+
+
+def k2_args(genc, comp, ext, mv8c, rounded, bd):
+    """mc_block's arguments for clamped MV field(s) on ext."""
+    if comp == "luma":
+        maps, n, taps, pad = genc._luma_maps(mv8c), 8, 8, genc.PAD
+    else:
+        maps, n, taps, pad = genc._chroma_maps(mv8c), 4, 4, genc.PAD // 2
+    return (ext, *(m.contiguous() for m in maps), n, taps, pad, rounded,
+            bd)
+
+
+def time_kernel(fn, plain, nbytes, ops, plain_reps=3):
+    """device_ms, call_ms, plain call_ms and the bound of one variant."""
+    b, by = bound(nbytes, ops)
+    return {"device_ms": device_ms(fn), "call_ms": call_ms(fn, 50),
+            "plain_ms": call_ms(plain, plain_reps),
+            "bound_ms": b, "bound_by": by}
+
+
+def _fmt(t):
+    return (f"device {t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"by {t['bound_by']} ({t['bound_ms'] / t['device_ms']:.0%} of "
+            f"bound)")
+
+
 def phase_kernels(results: dict):
     import torch
     from svt_hevc_tpu_torch.gpu import encode as genc
     from svt_hevc_tpu_torch.gpu import kernels as K
-    from svt_hevc_tpu_torch.gpu.me import _decimate2
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     planes = _kernel_inputs(dev)
-    (y0, cb0, _cr0), (y1, _cb1, _cr1) = planes
+    (y0, cb0, cr0), _ = planes
     max_err = {"sad_field": 0.0, "mc_block": 0.0}
 
     # ---- K1 at the three hme_search levels
-    s0, r0 = y1.float(), y0.float()
-    s1, r1 = _decimate2(s0), _decimate2(r0)
-    s2, r2 = _decimate2(s1), _decimate2(r1)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0,
+    k1 = {"device_ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "ops": 0.0,
           "bytes": 0.0}
-    for name, src, ref, r in (("level2", s2, r2, 8), ("level1", s1, r1, 4),
-                              ("level0", s0, r0, 4)):
+    for name, src, ref, r in k1_levels(planes):
         out = K.sad_field(src, ref, 16, r)
         want = K.sad_field_ref(src, ref, 16, r)
         torch.cuda.synchronize()
         check(torch.equal(out, want), f"K1 {name} differs from plain")
         max_err["sad_field"] = max(max_err["sad_field"],
                                    float((out - want).abs().max()))
-        ms = cuda_ms(lambda: K.sad_field(src, ref, 16, r), 20)
-        pms = cuda_ms(lambda: K.sad_field_ref(src, ref, 16, r), 3)
+        nbytes, ops = k1_work(src, r)
+        t = time_kernel(lambda a=(src, ref, 16, r): K.sad_field(*a),
+                        lambda a=(src, ref, 16, r): K.sad_field_ref(*a),
+                        nbytes, ops)
         h, w = src.shape
-        s2n = (2 * r + 1) ** 2
-        nbytes = 4 * (2 * h * w + s2n * (h // 16) * (w // 16))
-        ops = 3.0 * h * w * s2n
-        b, by = bound(nbytes, ops)
-        log(f"  K1 sad_field {name} {h}x{w} r={r}: equal, {ms:.4f} ms "
-            f"(plain {pms:.4f} ms, bound {b:.4f} ms by {by})")
-        k1["ms"] += ms
-        k1["plain_ms"] += pms
+        log(f"  K1 sad_field {name} {h}x{w} r={r}: equal, {_fmt(t)}")
+        for key in ("device_ms", "call_ms", "plain_ms"):
+            k1[key] += t[key]
         k1["ops"] += ops
         k1["bytes"] += nbytes
 
-    # ---- K2: luma / chroma, rounded both ways, 8- and 10-bit, extreme MVs
-    rng = np.random.default_rng(5)
+    # ---- K2 on one field: luma / chroma, rounded both ways, 8- and
+    # 10-bit, MVs at and beyond the clamp (the wrapper path with its
+    # clamp against the plain direct forms)
     lim = (genc.PAD - 9) * 4
     nby, nbx = 1088 // 8, 1920 // 8
-    mv = rng.integers(-lim - 64, lim + 65, (nby, nbx, 2)).astype(np.int32)
-    mv[0, :, :] = lim
-    mv[-1, :, :] = -lim
-    mv[:, 0, 0] = lim + 40
-    mv[:, -1, 1] = -lim - 40
-    mv8 = torch.from_numpy(mv).to(dev)
+    mv8 = torch.from_numpy(k2_fields(1, nby, nbx)[0]).to(dev)
     mv8c = mv8.clamp(-lim, lim)
-    k2 = None
+    exts = {}
     for bd in (8, 10):
         ly = y0 if bd == 8 else (y0 << 2) + 3
-        lc = cb0 if bd == 8 else (cb0 << 2) + 1
-        ext_y, ext_c = genc._ext_y(ly), genc._ext_c(lc)
+        lc = torch.stack([cb0, cr0]) if bd == 8 else \
+            (torch.stack([cb0, cr0]) << 2) + 1
+        exts[bd] = (genc._ext_y(ly), genc._ext_c(lc))
+        ext_y, ext_c2 = exts[bd]
         for rounded in (False, True):
-            for comp, ext, n, taps in (("luma", ext_y, 8, 8),
-                                       ("chroma", ext_c, 4, 4)):
+            for comp, ext in (("luma", ext_y), ("chroma", ext_c2[0])):
                 if comp == "luma":
                     out = genc._mc_luma(ext, mv8, bd, rounded)
                     want = (genc._mc_pred_luma_direct if rounded
                             else genc._mc_raw_luma_direct)(ext, mv8c, bd)
-                    maps = genc._luma_maps(mv8c)
-                    pad = genc.PAD
                 else:
                     out = genc._mc_chroma(ext, mv8, bd, rounded)
                     want = (genc._mc_pred_chroma_direct if rounded
                             else genc._mc_raw_chroma_direct)(ext, mv8c, bd)
-                    maps = genc._chroma_maps(mv8c)
-                    pad = genc.PAD // 2
                 torch.cuda.synchronize()
                 check(torch.equal(out, want),
                       f"K2 {comp} bd={bd} rounded={rounded} differs")
                 max_err["mc_block"] = max(
-                    max_err["mc_block"],
-                    float((out - want).abs().max()))
-                maps = [m.to(torch.int32).contiguous() for m in maps]
-                args = (ext, *maps, n, taps, pad, rounded, bd)
-                ms = cuda_ms(lambda a=args: K.mc_block(*a), 20)
-                pms = cuda_ms(lambda a=args: K.mc_block_ref(*a), 3)
+                    max_err["mc_block"], float((out - want).abs().max()))
+                args = k2_args(genc, comp, ext, mv8c, rounded, bd)
+                nbytes, ops = k2_work(ext, args[1:5], *args[5:7])
+                t = time_kernel(lambda a=args: K.mc_block(*a),
+                                lambda a=args: K.mc_block_ref(*a),
+                                nbytes, ops)
                 hp, wp = ext.shape
-                h, w = out.shape
-                m = n + taps - 1
-                nb = (h // n) * (w // n)
-                nbytes = 4 * (hp * wp + 4 * nb + h * w)
-                ops = 2.0 * nb * taps * (m * n + n * n)
-                b, by = bound(nbytes, ops)
                 log(f"  K2 mc_block {comp} bd={bd} rounded={rounded} "
-                    f"ref_ext {hp}x{wp} -> {h}x{w}: equal, {ms:.4f} ms "
-                    f"(plain {pms:.4f} ms, bound {b:.4f} ms by {by})")
-                if comp == "luma" and rounded and bd == 8:
-                    k2 = {"ms": ms, "plain_ms": pms, "bound_ms": b,
-                          "bound_by": by}
+                    f"ref_ext {hp}x{wp} -> {out.shape[0]}x{out.shape[1]}: "
+                    f"equal, {_fmt(t)}")
+
+    # ---- K2 batched as the callers launch it: K=10 luma fields on one
+    # plane (merge_snap's launch) and Cb + Cr under one field (the encode
+    # pass), rounded both ways, 8- and 10-bit
+    mv10 = torch.from_numpy(k2_fields(10, nby, nbx, seed=6)).to(dev)
+    mv10c = mv10.clamp(-lim, lim)
+    k2 = None
+    for bd in (8, 10):
+        ext_y, ext_c2 = exts[bd]
+        for rounded in (False, True):
+            for comp, ext, mv, mvc in (("luma", ext_y, mv10, mv10c),
+                                       ("chroma", ext_c2, mv8, mv8c)):
+                fn = genc._mc_luma if comp == "luma" else genc._mc_chroma
+                out = fn(ext, mv, bd, rounded)
+                args = k2_args(genc, comp, ext, mvc, rounded, bd)
+                want = K.mc_block_ref(*args)
+                torch.cuda.synchronize()
+                check(tuple(out.shape) == tuple(want.shape)
+                      and torch.equal(out, want),
+                      f"K2 batched {comp} bd={bd} rounded={rounded} "
+                      f"differs")
+                max_err["mc_block"] = max(
+                    max_err["mc_block"], float((out - want).abs().max()))
+                if bd != 8 or not rounded:
+                    continue
+                nbytes, ops = k2_work(ext, args[1:5], *args[5:7])
+                t = time_kernel(lambda a=args: K.mc_block(*a),
+                                lambda a=args: K.mc_block_ref(*a),
+                                nbytes, ops, plain_reps=2)
+                shape = "x".join(map(str, out.shape))
+                log(f"  K2 mc_block batched {comp} bd=8 rounded -> "
+                    f"{shape}: equal, {_fmt(t)}")
+                if comp == "luma":
+                    k2 = t
+    # random fields share no window between neighbouring blocks; a field
+    # of one MV per 32x32 CU (as the decided fields mostly are) does
+    mv32 = mv10c[:, ::4, ::4].repeat_interleave(4, 1).repeat_interleave(
+        4, 2).contiguous()
+    args = k2_args(genc, "luma", exts[8][0], mv32, True, 8)
+    check(torch.equal(K.mc_block(*args), K.mc_block_ref(*args)),
+          "K2 batched luma, one MV per 32x32, differs")
+    log(f"  K2 mc_block batched luma bd=8 rounded, one MV per 32x32 block: "
+        f"equal, device {device_ms(lambda: K.mc_block(*args)):.4f} ms")
     b1, by1 = bound(k1["bytes"], k1["ops"])
-    results["sad_field"] = {"ms": k1["ms"], "plain_ms": k1["plain_ms"],
-                            "bound_ms": b1, "bound_by": by1,
-                            "max_abs_err": max_err["sad_field"]}
+    results["sad_field"] = {
+        "device_ms": k1["device_ms"], "call_ms": k1["call_ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": b1, "bound_by": by1,
+        "max_abs_err": max_err["sad_field"]}
     results["mc_block"] = dict(k2, max_abs_err=max_err["mc_block"])
-    log(f"phase kernels: K1 x3 levels, K2 x8 variants equal to plain "
+    log(f"phase kernels: K1 x3 levels, K2 x8 one-field and x8 batched "
+        f"variants equal to plain; device_ms over {R_LAUNCHES} launches "
         f"({time.perf_counter() - t0:.3f} s)")
 
 
@@ -416,7 +555,8 @@ def main() -> int:
         r = results[name]
         rows.append({"name": name, "route": "cuda", "source": src[name][0],
                      "replaces": src[name][1], "launches": r["launches"],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
+                     "device_ms": r["device_ms"], "call_ms": r["call_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
     log(f"card: {card}")

@@ -8,7 +8,9 @@ each counterpart is easy to find.
 
 Conventions of the port:
   - Per-block motion compensation goes through kernel K2
-    (gpu/kernels.mc_block) via _mc_luma / _mc_chroma.
+    (gpu/kernels.mc_block) via _mc_luma / _mc_chroma. Independent MV
+    fields on one reference go into one launch (a (K, nby, nbx, 2) field
+    stack), and so do Cb and Cr; no decision is reordered for it.
   - Scalars the JAX graphs carry as traced values (qp, qp_c, tb, td) are
     Python ints here, and float32 lambdas are Python floats holding a
     float32 value, so no per-scalar device round trip exists.
@@ -230,7 +232,8 @@ def _mc_pred_chroma_direct(ref_c_ext, mv8, bit_depth: int = 8):
 def _mc_luma(ref_ext, mv8, bit_depth: int, rounded: bool):
     """Per-8x8-block luma MC from the (PAD+4)-padded integer reference
     through kernel K2. MVs are clamped to the padded reach first, so every
-    window lies inside ref_ext."""
+    window lies inside ref_ext. mv8 is one field (nby, nbx, 2) -> (h, w),
+    or K fields (K, nby, nbx, 2) -> (K, h, w) in one launch."""
     lim = (PAD - 9) * 4
     mv8 = mv8.to(torch.int32).clamp(-lim, lim)
     return mc_block(ref_ext, *_luma_maps(mv8), 8, 8, PAD, rounded,
@@ -239,7 +242,8 @@ def _mc_luma(ref_ext, mv8, bit_depth: int, rounded: bool):
 
 def _mc_chroma(ref_c_ext, mv8, bit_depth: int, rounded: bool):
     """Per-4x4-block chroma MC (4:2:0) from the (PAD//2+2)-padded plane
-    through kernel K2."""
+    through kernel K2; ref_c_ext may hold both planes, (2, hp, wp) ->
+    (2, h, w) in one launch."""
     lim = (PAD - 9) * 4
     mv8 = mv8.to(torch.int32).clamp(-lim, lim)
     return mc_block(ref_c_ext, *_chroma_maps(mv8), 4, 4, PAD // 2, rounded,
@@ -466,8 +470,8 @@ def encode_pass_p_direct(src_y, src_cb, src_cr, ref_y, ref_cb, ref_cr,
     """The normative inter encode pass for one P picture with MC straight
     from the reference planes (per-block windows + spec filters, K2)."""
     pred_y = _mc_luma(_ext_y(ref_y), mv8, bit_depth, True)
-    pred_cb = _mc_chroma(_ext_c(ref_cb), mv8, bit_depth, True)
-    pred_cr = _mc_chroma(_ext_c(ref_cr), mv8, bit_depth, True)
+    pred_cb, pred_cr = _mc_chroma(_ext_c(torch.stack([ref_cb, ref_cr])),
+                                  mv8, bit_depth, True)
     return _encode_pass_core(src_y, src_cb, src_cr, pred_y, pred_cb,
                              pred_cr, inter8, tu_log2_8, qp, qp_c,
                              bit_depth, lam, tu_split, cu_log2_8)
@@ -549,20 +553,22 @@ def _mvd_bits_dev(v: torch.Tensor) -> torch.Tensor:
     return torch.where(a == 0, 1, out).to(torch.int32)
 
 
-def _refine_subpel_dense(src, ref_ext, int_mvx, int_mvy, best, k: int,
+def _int_field(int_mvx, int_mvy, k: int) -> torch.Tensor:
+    """Per-k-block integer MVs as a quarter-pel 8x8-grid field."""
+    return torch.stack([_rep(int_mvx, k // 8) * 4,
+                        _rep(int_mvy, k // 8) * 4], -1)
+
+
+def _refine_subpel_dense(src, rec, int_mvx, int_mvy, best, k: int,
                          bit_depth: int, lam_me=None, cqx=None, cqy=None):
     """Exhaustive +/-3 quarter-pel refinement around the per-k-block best
-    integer MV: recentre the reference once at the integer MVs (K2),
-    interpolate the 16 subpel phases of the recentred plane, then every
-    candidate is a static slice of a phase plane. Candidates run in the
-    reference's order with strict-< updates, so ties keep the earlier
-    winner."""
+    integer MV. `rec` is the reference recentred at the integer MVs (K2 on
+    _int_field(int_mvx, int_mvy, k)); the 16 subpel phases of it are
+    interpolated, then every candidate is a static slice of a phase plane.
+    Candidates run in the reference's order with strict-< updates, so ties
+    keep the earlier winner."""
     h, w = src.shape
     maxval = (1 << bit_depth) - 1
-    rep = k // 8
-    rec = _mc_luma(ref_ext, torch.stack([_rep(int_mvx, rep) * 4,
-                                         _rep(int_mvy, rep) * 4], -1),
-                   bit_depth, True)
     raw = luma_phase_planes(rec, bit_depth=bit_depth)
     raw16 = raw.reshape(16, raw.shape[2], raw.shape[3])
     shift = 14 - bit_depth
@@ -604,10 +610,17 @@ def dense_md_p(src: torch.Tensor, ref: torch.Tensor, hme_mv: torch.Tensor,
 
     c16x = (hme_mv[..., 0] >> 2).clamp(-(PAD - 12), PAD - 12)
     c16y = (hme_mv[..., 1] >> 2).clamp(-(PAD - 12), PAD - 12)
+    nb64y, nb64x = h // 64, w // 64
+    c64x = c16x.to(torch.float32).reshape(nb64y, 4, nb64x, 4).mean(
+        (1, 3)).to(torch.int32)
+    c64y = c16y.to(torch.float32).reshape(nb64y, 4, nb64x, 4).mean(
+        (1, 3)).to(torch.int32)
 
-    rec_f = _mc_luma(ref_ext, torch.stack([_rep(c16x, 2) * 4,
-                                           _rep(c16y, 2) * 4], -1),
-                     bit_depth, True)
+    # the reference recentred at the per-16 and the per-64 centers: one
+    # K2 launch
+    rec_f, rec_c = _mc_luma(ref_ext, torch.stack(
+        [_int_field(c16x, c16y, 16), _int_field(c64x, c64y, 64)]),
+        bit_depth, True)
     stack8 = _sad_stack8(srcf, rec_f, 2)
     nb8y, nb8x = h // 8, w // 8
     stack16 = _boxsum(stack8.reshape(25, nb8y, nb8x), 2).reshape(
@@ -628,15 +641,6 @@ def dense_md_p(src: torch.Tensor, ref: torch.Tensor, hme_mv: torch.Tensor,
     mv8x, mv8y, sad8 = best_of(stack8, _rep(c16y, 2), _rep(c16x, 2), 2)
     mv16x, mv16y, sad16 = best_of(stack16, c16y, c16x, 2)
 
-    nb64y, nb64x = h // 64, w // 64
-    c64x = c16x.to(torch.float32).reshape(nb64y, 4, nb64x, 4).mean(
-        (1, 3)).to(torch.int32)
-    c64y = c16y.to(torch.float32).reshape(nb64y, 4, nb64x, 4).mean(
-        (1, 3)).to(torch.int32)
-
-    rec_c = _mc_luma(ref_ext, torch.stack([_rep(c64x, 8) * 4,
-                                           _rep(c64y, 8) * 4], -1),
-                     bit_depth, True)
     stack8c = _sad_stack8(srcf, rec_c, 3)
     stack32 = _boxsum(stack8c.reshape(49, nb8y, nb8x), 4).reshape(
         7, 7, nb8y // 4, nb8x // 4)
@@ -646,18 +650,24 @@ def dense_md_p(src: torch.Tensor, ref: torch.Tensor, hme_mv: torch.Tensor,
     mv32x, mv32y, sad32 = best_of(stack32, _rep(c64y, 2), _rep(c64x, 2), 3)
     mv64x, mv64y, sad64 = best_of(stack64, c64y, c64x, 3)
 
+    # subpel refinement per size; the three recentrings are independent
+    # (each on its own size's integer winners): one K2 launch
     lam_sub = None if qp is None else lam_me
-    if subpel_min <= 16:
-        mv16x, mv16y, sad16 = _refine_subpel_dense(
-            srcf, ref_ext, mv16x >> 2, mv16y >> 2, sad16, 16, bit_depth,
-            lam_me=lam_sub, cqx=c16x * 4, cqy=c16y * 4)
-    if subpel_min <= 32:
-        mv32x, mv32y, sad32 = _refine_subpel_dense(
-            srcf, ref_ext, mv32x >> 2, mv32y >> 2, sad32, 32, bit_depth,
-            lam_me=lam_sub, cqx=_rep(c64x, 2) * 4, cqy=_rep(c64y, 2) * 4)
-    mv64x, mv64y, sad64 = _refine_subpel_dense(
-        srcf, ref_ext, mv64x >> 2, mv64y >> 2, sad64, 64, bit_depth,
-        lam_me=lam_sub, cqx=c64x * 4, cqy=c64y * 4)
+    sub = {16: (mv16x, mv16y, sad16, c16x * 4, c16y * 4),
+           32: (mv32x, mv32y, sad32, _rep(c64x, 2) * 4, _rep(c64y, 2) * 4),
+           64: (mv64x, mv64y, sad64, c64x * 4, c64y * 4)}
+    sizes = [k for k in (16, 32, 64) if k == 64 or subpel_min <= k]
+    recs = _mc_luma(ref_ext, torch.stack(
+        [_int_field(sub[k][0] >> 2, sub[k][1] >> 2, k) for k in sizes]),
+        bit_depth, True)
+    for k, rec in zip(sizes, recs):
+        mvx, mvy, sad, cqx, cqy = sub[k]
+        sub[k] = _refine_subpel_dense(
+            srcf, rec, mvx >> 2, mvy >> 2, sad, k, bit_depth,
+            lam_me=lam_sub, cqx=cqx, cqy=cqy)
+    mv16x, mv16y, sad16 = sub[16][:3]
+    mv32x, mv32y, sad32 = sub[32][:3]
+    mv64x, mv64y, sad64 = sub[64][:3]
 
     p4 = PAD + 4
     zdiff = (srcf - ref_ext[p4:p4 + h, p4:p4 + w]).abs()
@@ -816,17 +826,26 @@ def decide_tree_dev(md: dict, ois: dict, ctb_log2: int, *,
         mvL = torch.cat([mv[:, :1], mv[:, :-1]], 1)
         mvT = torch.cat([mv[:1], mv[:-1]], 0)
 
-        def pred_of(mv_c, rep=rep):
-            mvf = torch.stack([_rep(mv_c[..., 0], rep),
-                               _rep(mv_c[..., 1], rep)], -1)
-            return _mc_luma(ref_ext4, mvf, bit_depth, True)
+        def preds_of(*mvs, rep=rep):
+            """K2 predictions of per-s-block MV fields, one launch."""
+            mvf = torch.stack(mvs).repeat_interleave(rep, 1)
+            return _mc_luma(ref_ext4, mvf.repeat_interleave(rep, 2),
+                            bit_depth, True)
 
         def satd_of(pred, rep=rep):
             return _boxsum(_satd8_map(srcf - pred), rep)
 
-        d_me = satd_of(pred_of(mv))
-        d_l = satd_of(pred_of(mvL))
-        d_t = satd_of(pred_of(mvT))
+        # ME, left, top (and TMVP) candidates: one launch
+        cand_mvs = [mv, mvL, mvT]
+        if col16_mv is not None:
+            mv_t, v_t = _tmvp_candidate(col16_mv, col16_v, s, mv.shape[:2],
+                                        ctb_log2, w, h)
+            mv_t = mv_t.clamp(-lim_q, lim_q)
+            cand_mvs.append(mv_t)
+        preds = preds_of(*cand_mvs)
+        d_me = satd_of(preds[0])
+        d_l = satd_of(preds[1])
+        d_t = satd_of(preds[2])
         bits_me = (_mvd_bits_dev(mv[..., 0] - mvL[..., 0])
                    + _mvd_bits_dev(mv[..., 1] - mvL[..., 1])
                    + AMVP_BASE_BITS)
@@ -838,10 +857,7 @@ def decide_tree_dev(md: dict, ois: dict, ctb_log2: int, *,
                       torch.full_like(bits_me, 3), bits_z]
         cands_mv = [mv, mvL, mvT, torch.zeros_like(mv)]
         if col16_mv is not None:
-            mv_t, v_t = _tmvp_candidate(col16_mv, col16_v, s, mv.shape[:2],
-                                        ctb_log2, w, h)
-            mv_t = mv_t.clamp(-lim_q, lim_q)
-            d_tm = torch.where(v_t, satd_of(pred_of(mv_t)), 1 << 29)
+            d_tm = torch.where(v_t, satd_of(preds[3]), 1 << 29)
             cands_d.append(d_tm)
             cands_bits.append(torch.full_like(bits_me, TMVP_BITS))
             cands_mv.append(mv_t)
@@ -859,10 +875,12 @@ def decide_tree_dev(md: dict, ois: dict, ctb_log2: int, *,
             ix = idx[None, ..., None].expand(1, *idx.shape, 2)
             return torch.gather(mv_stack, 0, ix)[0]
 
+        # the SATD winner and the merge-class runner-up: one launch
         mv_sel = take_mv(k)
-        j_sel = _rd_leaf_cost(srcf, pred_of(mv_sel), s, qp, lam_sse,
+        pred_sel, pred_cheap = preds_of(mv_sel, take_mv(kc))
+        j_sel = _rd_leaf_cost(srcf, pred_sel, s, qp, lam_sse,
                               take(bits_stack, k), bit_depth)
-        j_cheap = _rd_leaf_cost(srcf, pred_of(take_mv(kc)), s, qp, lam_sse,
+        j_cheap = _rd_leaf_cost(srcf, pred_cheap, s, qp, lam_sse,
                                 take(bits_stack, kc), bit_depth)
         use_cheap = ((j_cheap < j_sel + _f32(np.float32(lam_sse)
                                               * MERGE_BIAS_BITS))
@@ -1132,7 +1150,10 @@ def merge_snap(src, ref_ext4, mv8, inter8, cu_log2_8, qp: int, col16_mv,
     col16 = None
     if col16_mv is not None:
         col16 = _scale_mv_dev(col16_mv.to(torch.int32), tb, td)
-    satd8_dec = _satd8_map(srcf - _mc_luma(ref_ext4, mv8, bit_depth, True))
+    # every size's candidates read the input field mv8, never `out`, so
+    # the decided field and all candidates go into one K2 launch
+    per_size = []
+    fields = [mv8]
     for s in (8, 16, 32, 64):
         if (1 << ctb_log2) < s:
             continue
@@ -1141,15 +1162,6 @@ def merge_snap(src, ref_ext4, mv8, inter8, cu_log2_8, qp: int, col16_mv,
         gy, gx = nby // k, nbx // k
         leaf = (cu_log2_8[::k, ::k] == lg) & inter8[::k, ::k]
         mv_cu = mv8[::k, ::k]
-
-        def pred_of(mv_c, k=k):
-            mvf = torch.stack([_rep(mv_c[..., 0], k),
-                               _rep(mv_c[..., 1], k)], -1)
-            return _mc_luma(ref_ext4, mvf, bit_depth, True)
-
-        def satd_of(p, k=k):
-            return _boxsum(_satd8_map(srcf - p), k)
-
         ar_y = torch.arange(gy, device=dev)
         ar_x = torch.arange(gx, device=dev)
         rA1 = ar_y * k + (k - 1)
@@ -1165,7 +1177,13 @@ def merge_snap(src, ref_ext4, mv8, inter8, cu_log2_8, qp: int, col16_mv,
             mv_t, v_t = _tmvp_candidate(col16, col16_valid, s, (gy, gx),
                                         ctb_log2, w, h)
             cands.append((mv_t.clamp(-lim_q, lim_q), v_t, 5))
+        fields += [_rep(mv_c, k) for mv_c, _, _ in cands]
+        per_size.append((k, leaf, mv_cu, mvA1, cands))
+    preds = iter(_mc_luma(ref_ext4, torch.stack(fields), bit_depth, True))
 
+    satd8_dec = _satd8_map(srcf - next(preds))
+    for k, leaf, mv_cu, mvA1, cands in per_size:
+        gy, gx = nby // k, nbx // k
         d_dec = _boxsum(satd8_dec, k)
         bits_dec = (_mvd_bits_dev(mv_cu[..., 0] - mvA1[..., 0])
                     + _mvd_bits_dev(mv_cu[..., 1] - mvA1[..., 1])
@@ -1178,8 +1196,8 @@ def merge_snap(src, ref_ext4, mv8, inter8, cu_log2_8, qp: int, col16_mv,
         for mv_c, v_c, bits_c in cands:
             same = (mv_c == mv_cu).all(-1) & v_c
             already = already | same
-            j_c = torch.where(v_c, satd_of(pred_of(mv_c)) + lam * bits_c,
-                              1 << 30)
+            satd = _boxsum(_satd8_map(srcf - next(preds)), k)
+            j_c = torch.where(v_c, satd + lam * bits_c, 1 << 30)
             take = j_c < best_j
             best_j = torch.where(take, j_c, best_j)
             best_mv = torch.where(take[..., None], mv_c, best_mv)

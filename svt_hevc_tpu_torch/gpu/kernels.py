@@ -9,7 +9,9 @@ ctypes (plain C entry points; pointers and the stream as c_void_p).
 Beside each kernel sits its plain PyTorch version (``sad_field_ref``,
 ``mc_block_ref``). A wrapper takes the plain version only for tensors
 that lie on the CPU; for a CUDA tensor it launches the kernel or raises.
-Every launch adds one to the kernel's ``launches`` count.
+Every launch adds one to the kernel's ``launches`` count. The build runs
+ptxas verbosely; each kernel keeps its compiler output (registers, shared
+memory, spills) in ``build_log``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -50,6 +53,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
 
@@ -93,8 +97,8 @@ _I = ctypes.c_int
 SAD_FIELD = CudaKernel("sad_field", "sad_field.cu", "sad_field_launch",
                        [_P, _P, _P, _I, _I, _I, _I, _P])
 MC_BLOCK = CudaKernel("mc_block", "mc_block.cu", "mc_block_launch",
-                      [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _I, _I, _P])
+                      [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _P])
 KERNELS = (SAD_FIELD, MC_BLOCK)
 
 
@@ -110,11 +114,45 @@ def build_all(kernels=KERNELS) -> float:
     failed = []
     for k, p in procs:
         out, _ = p.communicate()
+        k.build_log = out
         if p.returncode != 0:
             failed.append(f"{k.source}:\n{out}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel instance from `ptxas -v` output:
+    registers, shared memory, stack frame and spills."""
+    rows, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            frame = ""
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = (f"{m.group(1)} B stack, {m.group(2)} B spill stores, "
+                     f"{m.group(3)} B spill loads")
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append(f"{name}: {m.group(1)} registers, "
+                        f"{m.group(2) or 0} B smem, {frame}")
+            name = None
+    return rows
+
+
+def _kernel_name(mangled: str) -> str:
+    """'..15mc_block_kernelILi8ELi8ELb1EEEv..' -> 'mc_block_kernel<8,8,1>'."""
+    m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EE", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](-?\d+)", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def reset_launches() -> None:
@@ -149,6 +187,10 @@ def edge_pad(p: torch.Tensor, top: int, bottom: int | None = None,
 
 # ------------------------------------------------------------ K1 SAD field
 
+# the search radii K1 is instantiated for (hme_search: 2r at the coarsest
+# level, r below it, with r = 4)
+SAD_FIELD_RADII = (4, 8)
+
 def sad_field_ref(src: torch.Tensor, ref: torch.Tensor, n: int,
                   r: int) -> torch.Tensor:
     """Plain version of K1 (the XLA form of me._block_sad_all_disp): SAD
@@ -177,6 +219,9 @@ def sad_field(src: torch.Tensor, ref: torch.Tensor, n: int,
     if ref.shape != src.shape or h % n or w % n:
         raise ValueError(f"sad_field: shapes {tuple(src.shape)} / "
                          f"{tuple(ref.shape)} vs block {n}")
+    if n != 16 or r not in SAD_FIELD_RADII:
+        raise ValueError(f"sad_field: the kernel takes n=16 and r in "
+                         f"{SAD_FIELD_RADII}, got n={n}, r={r}")
     _check_cuda("sad_field", (src, ref), torch.float32)
     s2 = 2 * r + 1
     out = torch.empty((s2, s2, h // n, w // n), dtype=torch.float32,
@@ -203,22 +248,51 @@ def _filter_table(taps: int, device) -> torch.Tensor:
     return _filter_rows(taps, str(device))
 
 
-def _mc_geometry(ref_ext, n: int, taps: int, pad: int):
+# the (n, taps) pairs K2 is instantiated for: luma 8x8 blocks with the
+# 8-tap filters, chroma (4:2:0) 4x4 blocks with the 4-tap filters
+MC_BLOCK_SHAPES = ((8, 8), (4, 4))
+
+
+def _mc_shape(ref_ext, maps, n: int, taps: int, pad: int):
+    """Check a K2 call's shapes; return (nby, nbx, output shape).
+
+    ref_ext is one edge-padded plane (hp, wp) or P planes of one shape
+    (P, hp, wp); the four maps are alike, (nby, nbx) for one MV field or
+    (K, nby, nbx) for K fields. The output is (h, w) with a leading P and
+    then K axis where the inputs have them."""
+    if (n, taps) not in MC_BLOCK_SHAPES:
+        raise ValueError(f"mc_block: (n, taps) = {(n, taps)} not in "
+                         f"{MC_BLOCK_SHAPES}")
+    if ref_ext.dim() not in (2, 3):
+        raise ValueError(f"mc_block: ref_ext of shape "
+                         f"{tuple(ref_ext.shape)} is not (hp, wp) or "
+                         f"(P, hp, wp)")
+    mshape = tuple(maps[0].shape)
+    if len(mshape) not in (2, 3) or any(tuple(m.shape) != mshape
+                                        for m in maps):
+        raise ValueError(f"mc_block: maps of shapes "
+                         f"{[tuple(m.shape) for m in maps]} are not four "
+                         f"alike (nby, nbx) or (K, nby, nbx)")
     margin = taps // 2
-    hp, wp = ref_ext.shape
+    hp, wp = ref_ext.shape[-2:]
     h = hp - 2 * (pad + margin)
     w = wp - 2 * (pad + margin)
-    return hp, wp, h, w, h // n, w // n
+    if h <= 0 or w <= 0 or h % n or w % n or mshape[-2:] != (h // n,
+                                                             w // n):
+        raise ValueError(f"mc_block: maps {mshape} do not fit a "
+                         f"{hp}x{wp} plane padded by {pad + margin} "
+                         f"with {n}x{n} blocks")
+    lead = tuple(ref_ext.shape[:-2]) + mshape[:-2]
+    return h // n, w // n, lead + (h, w)
 
 
-def mc_block_ref(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
-                 rounded: bool, bit_depth: int = 8) -> torch.Tensor:
-    """Plain version of K2 (the _mc_raw_*_direct / _mc_pred_*_direct
-    forms). ref_ext: edge-padded int32 plane, pad + taps//2 per side;
-    sy/sx: (nby, nbx) window origins relative to each block origin;
-    fx/fy: filter phases. Returns the (h, w) int32 plane: the 14-bit
-    intermediate, or clipped rounded pixels when `rounded`."""
-    hp, wp, h, w, nby, nbx = _mc_geometry(ref_ext, n, taps, pad)
+def _mc_field(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
+              rounded: bool, bit_depth: int) -> torch.Tensor:
+    """One plane, one MV field: the (h, w) int32 prediction."""
+    hp, wp = ref_ext.shape
+    h = hp - 2 * (pad + taps // 2)
+    w = wp - 2 * (pad + taps // 2)
+    nby, nbx = h // n, w // n
     dev = ref_ext.device
     m = n + taps - 1
     a = torch.arange(m, device=dev)
@@ -245,26 +319,45 @@ def mc_block_ref(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
     return out.permute(0, 2, 1, 3).reshape(h, w)
 
 
+def mc_block_ref(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
+                 rounded: bool, bit_depth: int = 8) -> torch.Tensor:
+    """Plain version of K2 (the _mc_raw_*_direct / _mc_pred_*_direct
+    forms). ref_ext: edge-padded int32 plane(s), pad + taps//2 per side,
+    (hp, wp) or (P, hp, wp); sy/sx: window origins relative to each block
+    origin and fx/fy: filter phases, each (nby, nbx) or (K, nby, nbx).
+    Returns the int32 prediction of every plane under every field, shaped
+    as _mc_shape says: the 14-bit intermediate, or clipped rounded pixels
+    when `rounded`. A loop over planes and fields of the one-field form."""
+    _, _, shape = _mc_shape(ref_ext, (sy, sx, fx, fy), n, taps, pad)
+    planes = ref_ext.reshape(-1, *ref_ext.shape[-2:])
+    maps = [t.reshape(-1, *t.shape[-2:]) for t in (sy, sx, fx, fy)]
+    out = torch.stack([
+        torch.stack([_mc_field(pl, *(t[k] for t in maps), n, taps, pad,
+                               rounded, bit_depth)
+                     for k in range(maps[0].shape[0])])
+        for pl in planes])
+    return out.reshape(shape)
+
+
 def mc_block(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
              rounded: bool, bit_depth: int = 8) -> torch.Tensor:
-    """K2: per-block MC (see mc_block_ref)."""
+    """K2: per-block MC of P planes under K MV fields in one launch (see
+    mc_block_ref)."""
+    nby, nbx, shape = _mc_shape(ref_ext, (sy, sx, fx, fy), n, taps, pad)
     if ref_ext.device.type == "cpu":
         return mc_block_ref(ref_ext, sy, sx, fx, fy, n, taps, pad, rounded,
                             bit_depth)
     if ref_ext.device.type != "cuda":
         raise ValueError(f"mc_block: unsupported device {ref_ext.device}")
-    hp, wp, h, w, nby, nbx = _mc_geometry(ref_ext, n, taps, pad)
     maps = [t.to(torch.int32).contiguous() for t in (sy, sx, fx, fy)]
-    for t in maps:
-        if tuple(t.shape) != (nby, nbx):
-            raise ValueError(f"mc_block: map shape {tuple(t.shape)} != "
-                             f"{(nby, nbx)}")
     _check_cuda("mc_block", [ref_ext] + maps, torch.int32)
-    filt = _filter_table(taps, ref_ext.device)
-    out = torch.empty((h, w), dtype=torch.int32, device=ref_ext.device)
-    MC_BLOCK.launch(ref_ext.data_ptr(), hp, wp,
-                    *(t.data_ptr() for t in maps), filt.data_ptr(),
-                    out.data_ptr(), nby, nbx, n, taps, bit_depth - 8,
+    hp, wp = ref_ext.shape[-2:]
+    n_planes = ref_ext.shape[0] if ref_ext.dim() == 3 else 1
+    n_fields = maps[0].shape[0] if maps[0].dim() == 3 else 1
+    out = torch.empty(shape, dtype=torch.int32, device=ref_ext.device)
+    MC_BLOCK.launch(ref_ext.data_ptr(), n_planes, hp, wp,
+                    *(t.data_ptr() for t in maps), out.data_ptr(), n_fields,
+                    nby, nbx, n, taps, bit_depth - 8,
                     (14 - bit_depth) if rounded else 0,
                     (1 << bit_depth) - 1, _stream())
     return out
