@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases (one line each, with seconds; any failure exits nonzero):
+Phases (one line each, with seconds; any failure exits nonzero). The
+timed card phases (kernels, main, ra) run first with nothing else on the
+host; then the CPU reference encodes of every check run in worker
+processes while the card encodes the small clips:
   1. card      name / power limit (nvidia-smi) and versions
   2. build     nvcc builds of the CUDA kernels (csrc/), all at once, with
                each kernel's registers, shared memory and spills, and
@@ -15,16 +18,29 @@ Phases (one line each, with seconds; any failure exits nonzero):
                and call_ms, the host-inclusive time of one wrapper call
                (what a launch-bound caller pays); the plain version's
                device time and the bound beside them
-  4. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
+  4. main      1920x1080 x 8 frames, M7, qp 32, IPPP, on the card: IDR /
+               first P / steady P seconds, kernel launches per P picture
+               (all > 0), recon PSNR
+  5. ra        1920x1080 x 9 frames, M7, qp 32, random access (hl=2), on
+               the card: IDR, P-anchor and per-layer B seconds per
+               picture, kernel launches per B picture (all > 0), recon
+               PSNR
+  6. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
                the CPU: streams byte-identical, equal to the reference
                sha256, decoded by the port's decoder to the recon
-  5. variants  the other configurations the port accepts (presets M6,
-               M10, M11; hierarchical low-delay P), 512x256 x 5 frames
-               each: card stream == CPU stream, decoded to the recon
-  6. main      1920x1080 x 8 frames, M7, qp 32, IPPP, on the card: IDR /
-               first P / steady P seconds, kernel launches per P picture
-               (all > 0), recon PSNR, and the I + P access units equal to
-               a CPU encode of the first two frames
+  7. small_ra  512x256 x 9 frames, M7, qp 32, random access (hierarchical
+               B, hl=2), on the card and on the CPU: streams
+               byte-identical, equal to the reference sha256, decoded by
+               the port's decoder to the recon
+  8. variants  the other configurations the port accepts (presets M6,
+               M10, M11; hierarchical low-delay P; low-delay B; random
+               access hl=1; open GOP with a CRA and RASL pictures),
+               512x256 x 5 frames each (x 9 for the open GOP): card
+               stream == CPU stream, decoded to the recon
+  9. cpu_1080p the main phase's I + P access units equal to a CPU encode
+               of the first two frames; the ra phase's I0, P4 and B2
+               access units equal to the first three of a CPU encode of
+               the same frames
 The line before the last is the kernel JSON, the last line the device
 JSON. Imports nothing of JAX.
 """
@@ -47,10 +63,31 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SMALL_SHA256 = \
     "31a6c0ca5957f609b9a27937e71866293ef65cd017382cedc71b48c29ead7cf3"
 SMALL_BYTES = 19785
+# the same for the random-access clip (512x256 x 9, make_frames(seed=11),
+# M7, qp 32, intra_period=-1, pred_structure=2, hierarchical_levels=2)
+SMALL_RA_SHA256 = \
+    "a58e32f64015bc5da7dd08107a31be473bbc524109a254139beca681ef491a98"
+SMALL_RA_BYTES = 18639
 
 # launches per device-time sample (CUDA events around a run of many
 # launches)
 R_LAUNCHES = 200
+
+# worker processes (and torch threads in each) for the CPU reference
+# encodes: most of a CPU encode is the IDR's sequential wavefront of small
+# steps, which more threads do not speed up
+CPU_WORKERS = 4
+CPU_THREADS = 2
+
+RA_KW = dict(pred_structure=2, hierarchical_levels=2)
+# (config, frames) of phase variants, 512x256
+VARIANTS = ((dict(enc_mode=6), 5), (dict(enc_mode=10), 5),
+            (dict(enc_mode=11), 5), (dict(hierarchical_levels=2), 5),
+            (dict(pred_structure=1), 5),
+            (dict(pred_structure=2, hierarchical_levels=1), 5),
+            # a CRA at POC 8 with the RASL pictures 6, 5 and 7
+            (dict(pred_structure=2, hierarchical_levels=2,
+                  intra_refresh_type=1, intra_period=7), 9))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and non-tensor fp32 rate;
 # int32 multiply-adds are counted at the fp32 rate (no lower bound is
@@ -382,26 +419,91 @@ def phase_kernels(results: dict):
           "K2 batched luma, one MV per 32x32, differs")
     log(f"  K2 mc_block batched luma bd=8 rounded, one MV per 32x32 block: "
         f"equal, device {device_ms(lambda: K.mc_block(*args)):.4f} ms")
+    # ---- K2 as the B path launches it: merge_snap_b's unrounded luma
+    # launch (the decided field and the A1 / B1 fields of the three CU
+    # sizes of CTB 32, K=7) on one list's plane
+    mv7 = mv10[:7].contiguous()
+    args = k2_args(genc, "luma", exts[8][0], mv10c[:7].contiguous(), False,
+                   8)
+    out = genc._mc_luma(exts[8][0], mv7, 8, False)
+    want = K.mc_block_ref(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "K2 B-shaped luma K=7 14-bit differs")
+    max_err["mc_block"] = max(max_err["mc_block"],
+                              float((out - want).abs().max()))
+    nbytes, ops = k2_work(exts[8][0], args[1:5], *args[5:7])
+    k2b = time_kernel(lambda a=args: K.mc_block(*a),
+                      lambda a=args: K.mc_block_ref(*a), nbytes, ops,
+                      plain_reps=2)
+    log(f"  K2 mc_block B-shaped luma bd=8 14-bit K=7 (merge_snap_b) -> "
+        f"{'x'.join(map(str, out.shape))}: equal, {_fmt(k2b)}")
     b1, by1 = bound(k1["bytes"], k1["ops"])
     results["sad_field"] = {
         "device_ms": k1["device_ms"], "call_ms": k1["call_ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": b1, "bound_by": by1,
         "max_abs_err": max_err["sad_field"]}
-    results["mc_block"] = dict(k2, max_abs_err=max_err["mc_block"])
-    log(f"phase kernels: K1 x3 levels, K2 x8 one-field and x8 batched "
-        f"variants equal to plain; device_ms over {R_LAUNCHES} launches "
+    results["mc_block"] = dict(k2, max_abs_err=max_err["mc_block"],
+                               b_launch=k2b)
+    log(f"phase kernels: K1 x3 levels, K2 x8 one-field, x8 batched and "
+        f"the B-shaped variant equal to plain; device_ms over "
+        f"{R_LAUNCHES} launches "
         f"({time.perf_counter() - t0:.3f} s)")
 
 
 def _encode(frames, w, h, device, n_aus=None, **kw):
+    """Encode frames (qp 32, M7, intra_period=-1 unless kw says otherwise);
+    with n_aus, take only the stream's first n_aus access units from the
+    generator and stop. Returns (parameter-set headers, access units)."""
     from svt_hevc_tpu_torch import Encoder, EncoderConfig
     cfg = EncoderConfig(**dict(dict(width=w, height=h, qp=32, enc_mode=7,
                                     intra_period=-1), **kw))
     enc = Encoder(cfg, device=device)
+    gen = enc.encode_pictures(frames)
     aus = []
-    for au in enc.encode_pictures(frames[:n_aus] if n_aus else frames):
+    for au in gen:
         aus.append(au)
+        if len(aus) == n_aus:
+            gen.close()
+            break
     return enc.headers(), aus
+
+
+def cpu_reference(job):
+    """One CPU reference encode, run in a worker process. job = (frames,
+    width, height, make_frames seed, config, n_aus). Returns (headers,
+    access-unit bytes, seconds)."""
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    n, w, h, seed, kw, n_aus = job
+    t0 = time.perf_counter()
+    hdr, aus = _encode(make_frames(n, w, h, seed=seed), w, h, "cpu",
+                       n_aus=n_aus, **kw)
+    return hdr, [a.data for a in aus], time.perf_counter() - t0
+
+
+def cpu_jobs() -> dict:
+    """Every check's CPU reference, longest first (the order the workers
+    take them in)."""
+    jobs = {"ra": (9, 1920, 1080, 7, dict(RA_KW, fps_num=50), 3),
+            "main": (2, 1920, 1080, 7, dict(fps_num=50), None),
+            "small": (10, 512, 256, 11, {}, None),
+            "small_ra": (9, 512, 256, 11, RA_KW, None)}
+    for i, (kw, n) in sorted(enumerate(VARIANTS), key=lambda e: -e[1][1]):
+        jobs[f"variant{i}"] = (n, 512, 256, 11, kw, None)
+    return jobs
+
+
+def _decodes_to_recon(stream: bytes, aus, what: str) -> None:
+    """The port's decoder gives back every picture's recon (the decoder
+    outputs in display order)."""
+    from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+    dec = decode_stream(stream)
+    check(len(dec) == len(aus), f"{what}: decoded picture count")
+    for d, a in zip(dec, sorted(aus, key=lambda a: a.display_idx)):
+        check(np.array_equal(d.y, a.recon.y)
+              and np.array_equal(d.cb, a.recon.cb)
+              and np.array_equal(d.cr, a.recon.cr),
+              f"{what}: decoded != recon")
 
 
 def _psnr(recons, frames) -> float:
@@ -414,56 +516,62 @@ def _psnr(recons, frames) -> float:
     return 10 * np.log10(255.0 ** 2 * npx / max(se, 1e-9))
 
 
-def phase_small():
-    from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+def phase_small(cpu):
     t0 = time.perf_counter()
     frames = make_frames(10, 512, 256, seed=11)
     hdr, aus = _encode(frames, 512, 256, "cuda")
     s_gpu = hdr + b"".join(a.data for a in aus)
     t1 = time.perf_counter()
-    hdr_c, aus_c = _encode(frames, 512, 256, "cpu")
-    s_cpu = hdr_c + b"".join(a.data for a in aus_c)
-    t2 = time.perf_counter()
-    check(s_gpu == s_cpu, "small clip: card stream != CPU stream")
+    hdr_c, aus_c, t_cpu = cpu.result()
+    check(s_gpu == hdr_c + b"".join(aus_c),
+          "small clip: card stream != CPU stream")
     sha = hashlib.sha256(s_gpu).hexdigest()
     check(sha == SMALL_SHA256 and len(s_gpu) == SMALL_BYTES,
           f"small clip: sha256 {sha} / {len(s_gpu)} bytes != reference")
-    dec = decode_stream(s_gpu)
-    check(len(dec) == len(aus), "small clip: decoded picture count")
-    for d, a in zip(dec, aus):
-        check(np.array_equal(d.y, a.recon.y)
-              and np.array_equal(d.cb, a.recon.cb)
-              and np.array_equal(d.cr, a.recon.cr),
-              "small clip: decoded != recon")
+    _decodes_to_recon(s_gpu, aus, "small clip")
     log(f"phase small: 512x256 x10 {len(s_gpu)} bytes, sha256 match, "
         f"card == CPU, decode == recon, PSNR-Y "
         f"{_psnr([a.recon for a in aus], frames):.3f} dB; card "
-        f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s "
+        f"{t1 - t0:.3f} s, CPU {t_cpu:.3f} s in a worker "
         f"({time.perf_counter() - t0:.3f} s)")
 
 
-def phase_variants():
-    from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+def phase_small_ra(cpu):
     t0 = time.perf_counter()
-    frames = make_frames(5, 512, 256, seed=11)
+    frames = make_frames(9, 512, 256, seed=11)
+    hdr, aus = _encode(frames, 512, 256, "cuda", **RA_KW)
+    s_gpu = hdr + b"".join(a.data for a in aus)
+    t1 = time.perf_counter()
+    hdr_c, aus_c, t_cpu = cpu.result()
+    check(s_gpu == hdr_c + b"".join(aus_c),
+          "small RA clip: card stream != CPU stream")
+    sha = hashlib.sha256(s_gpu).hexdigest()
+    check(sha == SMALL_RA_SHA256 and len(s_gpu) == SMALL_RA_BYTES,
+          f"small RA clip: sha256 {sha} / {len(s_gpu)} bytes != reference")
+    _decodes_to_recon(s_gpu, aus, "small RA clip")
+    types = "".join("IPB"[2 - a.slice_type] for a in aus)
+    recons = [a.recon for a in sorted(aus, key=lambda a: a.display_idx)]
+    log(f"phase small_ra: 512x256 x9 RA hl=2 (decode order {types}) "
+        f"{len(s_gpu)} bytes, sha256 match, card == CPU, decode == recon, "
+        f"PSNR-Y {_psnr(recons, frames):.3f} dB; "
+        f"card {t1 - t0:.3f} s, CPU {t_cpu:.3f} s in a worker "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+
+def phase_variants(cpus):
+    t0 = time.perf_counter()
+    frames = make_frames(9, 512, 256, seed=11)
     parts = []
-    for kw in (dict(enc_mode=6), dict(enc_mode=10), dict(enc_mode=11),
-               dict(hierarchical_levels=2)):
+    for (kw, n), cpu in zip(VARIANTS, cpus):
         name = ",".join(f"{k}={v}" for k, v in kw.items())
-        hdr, aus = _encode(frames, 512, 256, "cuda", **kw)
+        hdr, aus = _encode(frames[:n], 512, 256, "cuda", **kw)
         s_gpu = hdr + b"".join(a.data for a in aus)
-        hdr_c, aus_c = _encode(frames, 512, 256, "cpu", **kw)
-        check(s_gpu == hdr_c + b"".join(a.data for a in aus_c),
+        hdr_c, aus_c, _ = cpu.result()
+        check(s_gpu == hdr_c + b"".join(aus_c),
               f"variant {name}: card stream != CPU stream")
-        dec = decode_stream(s_gpu)
-        check(len(dec) == len(aus), f"variant {name}: decoded count")
-        for d, a in zip(dec, aus):
-            check(np.array_equal(d.y, a.recon.y)
-                  and np.array_equal(d.cb, a.recon.cb)
-                  and np.array_equal(d.cr, a.recon.cr),
-                  f"variant {name}: decoded != recon")
-        parts.append(f"{name} {len(s_gpu)} bytes")
-    log(f"phase variants: 512x256 x5, card == CPU, decode == recon: "
+        _decodes_to_recon(s_gpu, aus, f"variant {name}")
+        parts.append(f"{name} x{n} {len(s_gpu)} bytes")
+    log(f"phase variants: 512x256, card == CPU, decode == recon: "
         f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
 
 
@@ -513,15 +621,95 @@ def phase_main(results: dict):
     log("  launches per P picture: " + ", ".join(
         f"{name} {[int(c[k]) for c in per_p]}"
         for k, name in enumerate(names)))
-    t1 = time.perf_counter()
-    _, aus_c = _encode(frames, 1920, 1080, "cpu", n_aus=2)
-    t_cpu = time.perf_counter() - t1
-    for i in range(2):
-        check(aus[i].data == aus_c[i].data,
-              f"1080p AU {i}: card bytes != CPU bytes")
-    log(f"phase main: 1920x1080 x{n} on the card, I + P access units == "
-        f"CPU encode (CPU {t_cpu:.3f} s) "
+    log(f"phase main: 1920x1080 x{n} IPPP on the card "
         f"({time.perf_counter() - t_phase:.3f} s)")
+    return aus
+
+
+def phase_ra(results: dict):
+    import torch
+    from svt_hevc_tpu_torch import Encoder, EncoderConfig
+    from svt_hevc_tpu_torch.gpu import kernels as K
+
+    t_phase = time.perf_counter()
+    n = 9
+    frames = make_frames(n, 1920, 1080, seed=7)
+    cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
+                        enc_mode=7, intra_period=-1, **RA_KW)
+    enc = Encoder(cfg)
+    names = [k.name for k in K.KERNELS]
+
+    def counts():
+        return np.array([k.launches for k in K.KERNELS])
+
+    # random access encodes one picture per access unit (no pipelining):
+    # the time and the launches between two yields are that picture's
+    torch.cuda.synchronize()
+    K.reset_launches()
+    c_start = counts()
+    rows, aus = [], []
+    t_prev, c_prev = time.perf_counter(), c_start
+    for au in enc.encode_pictures(iter(frames)):
+        t_now, c_now = time.perf_counter(), counts()
+        pos = au.poc % 4
+        layer = 0 if pos == 0 else 2 - ((pos & -pos).bit_length() - 1)
+        rows.append((au, layer, t_now - t_prev, c_now - c_prev))
+        aus.append(au)
+        t_prev, c_prev = t_now, c_now
+    totals = counts() - c_start
+    per_b = [c for au, _, _, c in rows if au.slice_type == 0]
+    check(len(per_b) == 6, f"RA: {len(per_b)} B pictures, not 6")
+    for i, c in enumerate(per_b):
+        check(all(c > 0), f"B picture {i}: launches {dict(zip(names, c))}")
+    for k, name in enumerate(names):
+        results[name]["launches_ra"] = int(totals[k])
+        results[name]["launches_per_b_picture"] = [int(c[k]) for c in per_b]
+    order = " ".join(f"{'IPB'[2 - au.slice_type]}{au.poc}"
+                     for au, _, _, _ in rows)
+    idr = rows[0][2]
+    p_s = [dt for au, _, dt, _ in rows if au.slice_type == 1]
+    b_s = {}
+    for au, layer, dt, _ in rows:
+        if au.slice_type == 0:
+            b_s.setdefault(layer, []).append(dt)
+    recons = [a.recon for a in sorted(aus, key=lambda a: a.display_idx)]
+    psnr = _psnr(recons, frames)
+    log(f"  1080p RA hl=2 decode order {order}: IDR {idr:.3f} s, P anchors "
+        f"{', '.join(f'{t:.3f}' for t in p_s)} s, "
+        + ", ".join(f"layer-{lv} B {', '.join(f'{t:.3f}' for t in ts)} s "
+                    f"(mean {np.mean(ts):.3f})"
+                    for lv, ts in sorted(b_s.items()))
+        + f"; PSNR-Y {psnr:.3f} dB, {sum(len(a.data) for a in aus)} bytes")
+    log("  launches per B picture: " + ", ".join(
+        f"{name} {[int(c[k]) for c in per_b]}"
+        for k, name in enumerate(names)))
+    check([(a.poc, a.slice_type) for a in aus[:3]]
+          == [(0, 2), (4, 1), (2, 0)],
+          "RA: the first three access units are not I0, P4, B2")
+    log(f"phase ra: 1920x1080 x{n} RA on the card "
+        f"({time.perf_counter() - t_phase:.3f} s)")
+    return aus
+
+
+def phase_cpu_1080p(main_aus, ra_aus, cpu_main, cpu_ra):
+    """The 1080p access units of phases main and ra against CPU encodes:
+    I + P of the first two frames, and the first three access units (I0,
+    P4, B2) of the random-access stream, which the generator yields
+    without encoding the rest."""
+    t0 = time.perf_counter()
+    _, aus_c, t_main = cpu_main.result()
+    for i in range(2):
+        check(main_aus[i].data == aus_c[i],
+              f"1080p AU {i}: card bytes != CPU bytes")
+    _, aus_c, t_ra = cpu_ra.result()
+    for i in range(3):
+        check(ra_aus[i].data == aus_c[i],
+              f"1080p RA AU {i} (POC {ra_aus[i].poc}): card bytes != CPU "
+              f"bytes")
+    log(f"phase cpu_1080p: main I + P access units == CPU encode (CPU "
+        f"{t_main:.3f} s in a worker), ra I0 + P4 + B2 access units == CPU "
+        f"encode (CPU {t_ra:.3f} s in a worker) "
+        f"({time.perf_counter() - t0:.3f} s)")
 
 
 def main() -> int:
@@ -543,9 +731,22 @@ def main() -> int:
     phase_build()
     results: dict = {}
     phase_kernels(results)
-    phase_small()
-    phase_variants()
-    phase_main(results)
+    main_aus = phase_main(results)
+    ra_aus = phase_ra(results)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(
+        max_workers=CPU_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu = {name: pool.submit(cpu_reference, job)
+               for name, job in cpu_jobs().items()}
+        phase_small(cpu["small"])
+        phase_small_ra(cpu["small_ra"])
+        phase_variants([cpu[f"variant{i}"] for i in range(len(VARIANTS))])
+        phase_cpu_1080p(main_aus, ra_aus, cpu["main"], cpu["ra"])
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     src = {"sad_field": ("svt_hevc_tpu_torch/csrc/sad_field.cu",
                          "svt_hevc_tpu/tpu/pallas_kernels.py:71"),
            "mc_block": ("svt_hevc_tpu_torch/csrc/mc_block.cu",
@@ -553,12 +754,18 @@ def main() -> int:
     rows = []
     for name in ("sad_field", "mc_block"):
         r = results[name]
-        rows.append({"name": name, "route": "cuda", "source": src[name][0],
-                     "replaces": src[name][1], "launches": r["launches"],
-                     "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
-                     "device_ms": r["device_ms"], "call_ms": r["call_ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": src[name][0],
+               "replaces": src[name][1], "launches": r["launches"],
+               "max_abs_err": r["max_abs_err"], "ms": r["device_ms"],
+               "device_ms": r["device_ms"], "call_ms": r["call_ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None,
+               "launches_ra": r["launches_ra"],
+               "launches_per_b_picture": r["launches_per_b_picture"]}
+        if "b_launch" in r:
+            row["b_launch"] = {k: r["b_launch"][k] for k in (
+                "device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+        rows.append(row)
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

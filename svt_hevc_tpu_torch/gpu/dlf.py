@@ -1,10 +1,10 @@
 """Deblocking filter on the card: dense edge-parallel form of core/deblock.
 
-PyTorch port of svt_hevc_tpu/tpu/dlf.py (P-picture single-list form):
-every vertical edge segment of the picture is filtered in one masked
-dense pass, then horizontal edges run the same core on the transposed
-plane (spec 8.7.2 order). Boundary strengths come from the fast path's
-decision maps.
+PyTorch port of svt_hevc_tpu/tpu/dlf.py: every vertical edge segment of
+the picture is filtered in one masked dense pass, then horizontal edges
+run the same core on the transposed plane (spec 8.7.2 order). Boundary
+strengths come from the fast path's decision maps: one reference list
+(P pictures) or two (B pictures, with the full two-list motion rule).
 """
 
 from __future__ import annotations
@@ -142,26 +142,77 @@ def _filter_chroma_dir(plane, bs_luma, qp_c: int, bit_depth: int):
     return res
 
 
+_POC_NONE = -(10 ** 6)          # reference POC of an unused list
+
+
+def _bs_motion_rule_dev(rp, rq, mvp, mvq):
+    """The bS=1 motion conditions (8.7.2.4) for inter/inter edges, two
+    reference lists (mirror of core.deblock._bs_motion_rule). rp/rq:
+    (..., 2) reference POCs (_POC_NONE = unused); mvp/mvq: (..., 2, 2).
+    The 2-element sort of each side's POC set is a min/max pair."""
+    diff_sets = ((torch.minimum(rp[..., 0], rp[..., 1])
+                  != torch.minimum(rq[..., 0], rq[..., 1]))
+                 | (torch.maximum(rp[..., 0], rp[..., 1])
+                    != torch.maximum(rq[..., 0], rq[..., 1])))
+
+    both_bi = (rp != _POC_NONE).all(-1) & (rq != _POC_NONE).all(-1)
+    up = torch.where((rp[..., 0] != _POC_NONE)[..., None],
+                     mvp[..., 0, :], mvp[..., 1, :])
+    uq = torch.where((rq[..., 0] != _POC_NONE)[..., None],
+                     mvq[..., 0, :], mvq[..., 1, :])
+    uni_diff = ((up - uq).abs() >= 4).any(-1)
+
+    def far(a, b):
+        return ((a - b).abs() >= 4).any(-1)
+
+    same_order = rp[..., 0] == rq[..., 0]
+    d_same = (far(mvp[..., 0, :], mvq[..., 0, :])
+              | far(mvp[..., 1, :], mvq[..., 1, :]))
+    d_cross = (far(mvp[..., 0, :], mvq[..., 1, :])
+               | far(mvp[..., 1, :], mvq[..., 0, :]))
+    bi_distinct_diff = torch.where(same_order, d_same, d_cross)
+    same_pic_twice = both_bi & (rp[..., 0] == rp[..., 1])
+    bi_same_diff = d_same & d_cross
+
+    mv_rule = torch.where(both_bi,
+                          torch.where(same_pic_twice, bi_same_diff,
+                                      bi_distinct_diff),
+                          uni_diff)
+    return diff_sets | mv_rule
+
+
 def derive_bs_maps(cu_log2_8, inter8, mv8, cbf4, w: int, h: int,
-                   tu_log2_8=None):
-    """Boundary-strength maps from the fast-path decision grids (single
-    reference list). Returns (bs_v (H//4, W//8), bs_h (H//8, W//4)) int8
-    with edges outside the coded area zeroed (intra side -> 2; else cbf
-    or an MV difference of >= 1 full pel -> 1)."""
+                   tu_log2_8=None, refpoc8=None, mv8_2l=None):
+    """Boundary-strength maps from the fast-path decision grids. Returns
+    (bs_v (H//4, W//8), bs_h (H//8, W//4)) int8 with edges outside the
+    coded area zeroed (intra side -> 2; else cbf or the motion rule -> 1).
+    mv8: (nby, nbx, 2) L0 MVs (one reference: an MV difference of >= 1
+    full pel). B form: refpoc8 (2, nby, nbx) per-list reference POC
+    (_POC_NONE where unused) and mv8_2l (2, nby, nbx, 2) select the
+    two-list rule, _bs_motion_rule_dev."""
     nby, nbx = cu_log2_8.shape
     h64, w64 = nby * 8, nbx * 8
     dev = cu_log2_8.device
     tu8 = (torch.clamp_max(cu_log2_8, 5) if tu_log2_8 is None
            else tu_log2_8)
+    two_list = refpoc8 is not None
 
     def one_dir(transpose: bool):
         if transpose:
             cu, it, cb = tu8.T, inter8.T, cbf4.T
-            mv = mv8.permute(1, 0, 2)
+            if two_list:
+                rp8 = refpoc8.permute(0, 2, 1)
+                mv2 = mv8_2l.permute(0, 2, 1, 3)
+            else:
+                mv = mv8.permute(1, 0, 2)
             hh, wwv = w64, h64
             wlim, hlim = h, w
         else:
-            cu, it, cb, mv = tu8, inter8, cbf4, mv8
+            cu, it, cb = tu8, inter8, cbf4
+            if two_list:
+                rp8, mv2 = refpoc8, mv8_2l
+            else:
+                mv = mv8
             hh, wwv = h64, w64
             wlim, hlim = w, h
         ns, nc = hh // 4, wwv // 8
@@ -179,9 +230,16 @@ def derive_bs_maps(cu_log2_8, inter8, mv8, cbf4, w: int, h: int,
         cbf_p = cb[rows4[:, None], (torch.clamp_min(cols8 - 1, 0) // 4)
                    [None, :]]
         cbf_q = cb[rows4[:, None], (cols8 // 4)[None, :]]
-        mvp = mv[br[:, None], bp[None, :]]
-        mvq = mv[br[:, None], bq[None, :]]
-        mv_diff = ((mvp - mvq).abs() >= 4).any(-1)
+        if two_list:
+            rpp = rp8[:, br[:, None], bp[None, :]].permute(1, 2, 0)
+            rpq = rp8[:, br[:, None], bq[None, :]].permute(1, 2, 0)
+            mvp = mv2[:, br[:, None], bp[None, :]].permute(1, 2, 0, 3)
+            mvq = mv2[:, br[:, None], bq[None, :]].permute(1, 2, 0, 3)
+            mv_diff = _bs_motion_rule_dev(rpp, rpq, mvp, mvq)
+        else:
+            mvp = mv[br[:, None], bp[None, :]]
+            mvq = mv[br[:, None], bq[None, :]]
+            mv_diff = ((mvp - mvq).abs() >= 4).any(-1)
         bs1 = (cbf_p | cbf_q) > 0
         bs = torch.where(intra_p | intra_q, 2,
                          torch.where(bs1 | mv_diff, 1, 0))

@@ -1,6 +1,6 @@
 """Encode pass on the card: the EncDec hot loop as batched PyTorch stages.
 
-PyTorch port of the P- and I-picture fused paths of
+PyTorch port of the I-, P- and B-picture fused paths of
 svt_hevc_tpu/tpu/encode.py: dense mode decision, quadtree decision,
 merge alignment, the normative inter encode pass, the in-loop filters and
 the packed download. Function names and layouts follow the JAX module so
@@ -10,7 +10,9 @@ Conventions of the port:
   - Per-block motion compensation goes through kernel K2
     (gpu/kernels.mc_block) via _mc_luma / _mc_chroma. Independent MV
     fields on one reference go into one launch (a (K, nby, nbx, 2) field
-    stack), and so do Cb and Cr; no decision is reordered for it.
+    stack), and so do Cb and Cr; no decision is reordered for it. B
+    pictures launch once per reference plane: two lists under different
+    fields are two launches.
   - Scalars the JAX graphs carry as traced values (qp, qp_c, tb, td) are
     Python ints here, and float32 lambdas are Python floats holding a
     float32 value, so no per-scalar device round trip exists.
@@ -36,6 +38,7 @@ import torch
 from ..core.inter import CHROMA_FILTERS, LUMA_FILTERS
 from ..core.quant import INV_QUANT_SCALES, QUANT_SCALES
 from ..core.transforms import DCT
+from .dlf import _POC_NONE
 from .kernels import edge_pad, mc_block, mc_block_ref
 
 # full-pel MV headroom on each side of the coded picture (see the JAX
@@ -526,6 +529,58 @@ def _encode_pass_core(src_y, src_cb, src_cr, pred_y, pred_cb, pred_cr,
     }
 
 
+def _round_uni(raw, bit_depth: int):
+    """Uni-prediction sample (8.5.3.3.4.2) of a 14-bit K2 intermediate:
+    the rounded, clipped form K2 computes when asked for rounded pixels."""
+    s_u = 14 - bit_depth
+    return ((raw + (1 << (s_u - 1))) >> s_u).clamp(0, (1 << bit_depth) - 1)
+
+
+def _bi_select(a, b, use0, use1, k: int, bit_depth: int):
+    """Per-block uni/bi combine of two 14-bit MC planes: uni rounds one
+    intermediate (8.5.4.2.3.1), bi averages both (8.5.4.2.3.2). use0/use1:
+    (nby, nbx) bool at 8x8-luma granularity; k: pixels per map cell in
+    this plane (8 luma, 4 chroma 4:2:0)."""
+    s_b = 15 - bit_depth
+    bi = ((a + b + (1 << (s_b - 1))) >> s_b).clamp(0, (1 << bit_depth) - 1)
+    m0, m1 = _rep(use0, k), _rep(use1, k)
+    return torch.where(m0 & m1, bi, torch.where(m1, _round_uni(b, bit_depth),
+                                                _round_uni(a, bit_depth)))
+
+
+def mc_pred_b_direct(ref0_3, ref1_3, mv8_2l, use0, use1,
+                     bit_depth: int = 8):
+    """B-picture MC prediction of all three planes by direct per-block
+    filtering: four K2 launches, luma and Cb + Cr per list, each in the
+    14-bit domain, then the per-block uni/bi selection. ref0_3/ref1_3:
+    (y, cb, cr) integer reference planes per list."""
+    preds = []
+    for ref3, mv in ((ref0_3, mv8_2l[0]), (ref1_3, mv8_2l[1])):
+        y = _mc_luma(_ext_y(ref3[0]), mv, bit_depth, False)
+        c = _mc_chroma(_ext_c(torch.stack([ref3[1], ref3[2]])), mv,
+                       bit_depth, False)
+        preds.append((y, c[0], c[1]))
+    (a_y, a_cb, a_cr), (b_y, b_cb, b_cr) = preds
+    return (_bi_select(a_y, b_y, use0, use1, 8, bit_depth),
+            _bi_select(a_cb, b_cb, use0, use1, 4, bit_depth),
+            _bi_select(a_cr, b_cr, use0, use1, 4, bit_depth))
+
+
+def encode_pass_b_direct(src_y, src_cb, src_cr, ref0_3, ref1_3, mv8_2l,
+                         ref8_2l, tu_log2_8, qp: int, qp_c: int,
+                         bit_depth: int = 8, lam=None,
+                         tu_split: bool = False, cu_log2_8=None):
+    """The normative inter encode pass for one B picture (per-block uni /
+    bi MC straight from both lists' reference planes)."""
+    use0 = ref8_2l[0] >= 0
+    use1 = ref8_2l[1] >= 0
+    pred_y, pred_cb, pred_cr = mc_pred_b_direct(ref0_3, ref1_3, mv8_2l,
+                                                use0, use1, bit_depth)
+    return _encode_pass_core(src_y, src_cb, src_cr, pred_y, pred_cb,
+                             pred_cr, use0 | use1, tu_log2_8, qp, qp_c,
+                             bit_depth, lam, tu_split, cu_log2_8)
+
+
 # ---------------------------------------------------------------- dense MD
 
 def _sad_stack8(src: torch.Tensor, rec: torch.Tensor, r: int):
@@ -939,6 +994,198 @@ def decide_tree_dev(md: dict, ois: dict, ctb_log2: int, *,
         mode8.to(torch.int32)
 
 
+def decide_tree_b_dev(md0: dict, md1: dict, ois: dict, ctb_log2: int,
+                      src, ref0, ref1, *, min_intra_log2: int = 4, w: int,
+                      h: int, qp: int, bit_depth: int = 8):
+    """Bottom-up quadtree DP of a B picture. Per CU size the candidates
+    are uni-L0 and uni-L1 (each list's ME winner, left / top neighbours
+    and zero MV, as in decide_tree_dev), bi (both ME winners, sizes >= 16)
+    and gated intra, ranked by SATD; a true-RD stage then compares the
+    SATD winner with the cheapest merge-class candidate of both lists.
+    Each list's fields of every size go into one K2 launch (the 14-bit
+    ME predictions feed the bi average; the neighbours are rounded from
+    the same launch), and the finalists of every size into a second.
+    Returns (cu_log2_8, ref8_2l (2, nby, nbx), mv8_2l (2, nby, nbx, 2),
+    mode8)."""
+    INF = 1 << 30
+    lam = 2 * int(LAMBDA_SAD[qp])                 # SATD ~ 2x SAD scale
+    lam_sse = float(_LAM_SSE_P[qp])
+    j_ratio = _f32(np.float32(lam_sse) / np.float32(max(lam, 1.0)))
+    srcf = src.to(torch.int32)
+    dev = srcf.device
+    maxval = (1 << bit_depth) - 1
+    s_b = 15 - bit_depth
+    exts = (_ext_y(ref0), _ext_y(ref1))
+    zs = []
+    for ref in (ref0, ref1):
+        z = {8: _satd8_map(srcf - ref.to(torch.int32))}
+        for s in (16, 32, 64):
+            z[s] = _boxsum(z[s // 2], 2)
+        zs.append(z)
+    sizes = [s for s in (8, 16, 32, 64) if (1 << ctb_log2) >= s]
+
+    def up_mv(mv, rep):
+        return mv.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
+
+    def satd_of(pred, rep):
+        return _boxsum(_satd8_map(srcf - pred), rep)
+
+    def take(stack, idx):
+        return torch.gather(stack, 0, idx[None])[0]
+
+    def take_mv(stack, idx):
+        ix = idx[None, ..., None].expand(1, *idx.shape, 2)
+        return torch.gather(stack, 0, ix)[0]
+
+    # ---- stage 1, per list: ME winner, left and top candidates of every
+    # size in one launch; the merge-aware per-list ranking (ME winner at
+    # predictor-relative MVD cost, neighbours at merge cost, zero MV
+    # merge-priced only when a neighbour is zero)
+    uni = ({}, {})
+    for li, md in enumerate((md0, md1)):
+        fields, per_size = [], []
+        for s in sizes:
+            rep = s // 8
+            mv = md[f"mv{s}"].to(torch.int32)
+            mvL = torch.cat([mv[:, :1], mv[:, :-1]], 1)
+            mvT = torch.cat([mv[:1], mv[:-1]], 0)
+            fields += [up_mv(mv, rep), up_mv(mvL, rep), up_mv(mvT, rep)]
+            per_size.append((s, mv, mvL, mvT))
+        raws = iter(_mc_luma(exts[li], torch.stack(fields), bit_depth,
+                             False))
+        for s, mv, mvL, mvT in per_size:
+            rep = s // 8
+            raw_me = next(raws)
+            d_me = satd_of(_round_uni(raw_me, bit_depth), rep)
+            d_l = satd_of(_round_uni(next(raws), bit_depth), rep)
+            d_t = satd_of(_round_uni(next(raws), bit_depth), rep)
+            b_me = (_mvd_bits_dev(mv[..., 0] - mvL[..., 0])
+                    + _mvd_bits_dev(mv[..., 1] - mvL[..., 1]))
+            zerN = (mvL == 0).all(-1) | (mvT == 0).all(-1)
+            bits_stack = torch.stack([
+                b_me + 4 + li, torch.full_like(b_me, 2),
+                torch.full_like(b_me, 3),
+                torch.where(zerN, 3, 10).to(torch.int32)])
+            c_stack = (torch.stack([d_me, d_l, d_t, zs[li][s]])
+                       + lam * bits_stack).to(torch.int32)
+            mv_stack = torch.stack([mv, mvL, mvT, torch.zeros_like(mv)])
+            k = torch.argmin(c_stack, dim=0)
+            kc = torch.argmin(c_stack[1:], dim=0) + 1
+            uni[li][s] = {
+                "raw": raw_me, "b_me": b_me, "c": c_stack.amin(dim=0),
+                "mv_sel": take_mv(mv_stack, k),
+                "bits_sel": take(bits_stack, k),
+                "c_ch": take(c_stack, kc), "mv_ch": take_mv(mv_stack, kc),
+                "bits_ch": take(bits_stack, kc)}
+        # the finalists (SATD winner and cheapest merge-class candidate)
+        # regenerated from their MVs: one launch for every size
+        preds = iter(_mc_luma(exts[li], torch.stack(
+            [up_mv(uni[li][s][key], s // 8) for s in sizes
+             for key in ("mv_sel", "mv_ch")]), bit_depth, True))
+        for s in sizes:
+            uni[li][s]["p_sel"] = next(preds)
+            uni[li][s]["p_ch"] = next(preds)
+
+    leaf_cost, leaf_mode = {}, {}
+    leaf_mv0, leaf_mv1, leaf_u0, leaf_u1 = {}, {}, {}, {}
+    for s in sizes:
+        rep = s // 8
+        u0, u1 = uni[0][s], uni[1][s]
+        c0, c1 = u0["c"], u1["c"]
+        mv0, mv1 = (md[f"mv{s}"].to(torch.int32) for md in (md0, md1))
+        if s >= 16:
+            pred_bi = ((u0["raw"] + u1["raw"] + (1 << (s_b - 1))) >> s_b
+                       ).clamp(0, maxval)
+            cbi = (satd_of(pred_bi, rep)
+                   + lam * (u0["b_me"] + u1["b_me"] + 6)).to(torch.int32)
+        else:
+            pred_bi = _round_uni(u0["raw"], bit_depth)
+            cbi = torch.full_like(c0, INF)
+        if 32 >= s >= (1 << min_intra_log2):
+            mode_map, cost_map = ois[s]
+            intra_c = 2 * cost_map + lam * 6
+            fails = torch.minimum(c0, c1) > (lam * s * s) >> 1
+            intra_c = torch.where(fails, intra_c, INF)
+        else:
+            intra_c = torch.full_like(c0, INF)
+            mode_map = torch.zeros_like(c0)
+        best = torch.minimum(torch.minimum(c0, c1),
+                             torch.minimum(cbi, intra_c))
+        is_bi = best == cbi
+        is_1 = (best == c1) & ~is_bi
+        is_0 = (best == c0) & ~is_bi & ~is_1
+        is_intra = ~(is_bi | is_1 | is_0)
+
+        # ---- stage 2: true RD between the SATD winner and the cheapest
+        # merge-class candidate across both lists
+        pred_win = torch.where(_rep(is_bi, s), pred_bi,
+                               torch.where(_rep(is_1, s), u1["p_sel"],
+                                           u0["p_sel"]))
+        bits_win = torch.where(is_bi, u0["b_me"] + u1["b_me"] + 6,
+                               torch.where(is_1, u1["bits_sel"],
+                                           u0["bits_sel"]))
+        ch_is_1 = u1["c_ch"] < u0["c_ch"]
+        pred_ch = torch.where(_rep(ch_is_1, s), u1["p_ch"], u0["p_ch"])
+        bits_ch = torch.where(ch_is_1, u1["bits_ch"], u0["bits_ch"])
+        j_sel = _rd_leaf_cost(srcf, pred_win, s, qp, lam_sse, bits_win,
+                              bit_depth)
+        j_ch = _rd_leaf_cost(srcf, pred_ch, s, qp, lam_sse, bits_ch,
+                             bit_depth)
+        use_ch = (j_ch < j_sel) & ~is_intra
+        inter_j = torch.where(use_ch, j_ch, j_sel)
+        zero = torch.zeros_like(mv0)
+        uc, c1v = use_ch[..., None], ch_is_1[..., None]
+        leaf_mv0[s] = torch.where(
+            uc, torch.where(c1v, zero, u0["mv_ch"]),
+            torch.where(is_bi[..., None], mv0,
+                        torch.where(is_0[..., None], u0["mv_sel"], zero)))
+        leaf_mv1[s] = torch.where(
+            uc, torch.where(c1v, u1["mv_ch"], zero),
+            torch.where(is_bi[..., None], mv1,
+                        torch.where(is_1[..., None], u1["mv_sel"], zero)))
+        leaf_u0[s] = torch.where(use_ch, ~ch_is_1, is_0 | is_bi)
+        leaf_u1[s] = torch.where(use_ch, ch_is_1, is_1 | is_bi)
+        leaf_cost[s] = torch.where(
+            is_intra,
+            torch.clamp_max(j_ratio * intra_c.to(torch.float32), 3e37),
+            inter_j)
+        leaf_mode[s] = torch.where(is_intra, mode_map.to(torch.int32), 0)
+
+    split_charge = _f32(np.float32(lam_sse) * np.float32(3.0))
+    best = {8: leaf_cost[8]}
+    split = {}
+    for s in sizes[1:]:
+        agg = _boxsum(best[s // 2], 2) + split_charge
+        gy, gx = leaf_cost[s].shape
+        cross = (((torch.arange(gx, device=dev) * s + s) > w)[None, :]
+                 | ((torch.arange(gy, device=dev) * s + s) > h)[:, None])
+        split[s] = (agg < leaf_cost[s]) | cross
+        best[s] = torch.where(split[s], agg, leaf_cost[s])
+
+    nby, nbx = leaf_cost[8].shape
+    cu_log2 = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    u0 = torch.zeros((nby, nbx), dtype=torch.bool, device=dev)
+    u1 = torch.zeros((nby, nbx), dtype=torch.bool, device=dev)
+    mv8_0 = torch.zeros((nby, nbx, 2), dtype=torch.int32, device=dev)
+    mv8_1 = torch.zeros((nby, nbx, 2), dtype=torch.int32, device=dev)
+    mode8 = torch.zeros((nby, nbx), dtype=torch.int32, device=dev)
+    undecided = torch.ones((nby, nbx), dtype=torch.bool, device=dev)
+    for s in reversed(sizes):
+        k = s // 8
+        leaf_here = undecided if s == 8 else undecided & ~_rep(split[s], k)
+        cu_log2 = torch.where(leaf_here, s.bit_length() - 1, cu_log2)
+        u0 = torch.where(leaf_here, _rep(leaf_u0[s], k), u0)
+        u1 = torch.where(leaf_here, _rep(leaf_u1[s], k), u1)
+        lh = leaf_here[..., None]
+        mv8_0 = torch.where(lh, _rep(leaf_mv0[s], k), mv8_0)
+        mv8_1 = torch.where(lh, _rep(leaf_mv1[s], k), mv8_1)
+        mode8 = torch.where(leaf_here, _rep(leaf_mode[s], k), mode8)
+        undecided = undecided & ~leaf_here
+    ref8_2 = torch.stack([torch.where(u0, 0, -1), torch.where(u1, 0, -1)])
+    return (cu_log2.to(torch.int32), ref8_2.to(torch.int32),
+            torch.stack([mv8_0, mv8_1]).to(torch.int32), mode8.to(torch.int32))
+
+
 # ------------------------------------------------------- fused I-picture path
 
 def decide_tree_i_dev(ois: dict, qp: int, ctb_log2: int, w: int, h: int,
@@ -1042,9 +1289,11 @@ def _edge_pad_to(rec, w: int, h: int):
 
 def _finish_fused(src3, rec3, lv3, cu_log2_8, inter8, mv8, tu8, qp: int,
                   qp_c: int, lam: float, ctb_log2: int, w: int, h: int,
-                  bit_depth: int, dlf: bool, sao: bool):
+                  bit_depth: int, dlf: bool, sao: bool, refpoc8=None,
+                  mv8_2l=None):
     """Shared fused tail: cbf map -> DLF -> SAO decide + apply -> edge
-    pad, then pack everything the host needs (no recon planes)."""
+    pad, then pack everything the host needs (no recon planes).
+    refpoc8/mv8_2l: two-list motion for the B-picture bS rule."""
     from .dlf import deblock_dev, derive_bs_maps
     from .sao import sao_apply_dev, sao_decide_dev
 
@@ -1059,7 +1308,8 @@ def _finish_fused(src3, rec3, lv3, cu_log2_8, inter8, mv8, tu8, qp: int,
     if dlf:
         cbf4 = _cbf4_map(lv_y, tu8)
         bs_v, bs_ht = derive_bs_maps(cu_log2_8, inter8, mv8, cbf4, w, h,
-                                     tu_log2_8=tu8)
+                                     tu_log2_8=tu8, refpoc8=refpoc8,
+                                     mv8_2l=mv8_2l)
         rec_y, rec_cb, rec_cr = deblock_dev(rec_y, rec_cb, rec_cr, bs_v,
                                             bs_ht, qp, qp_c,
                                             bit_depth=bit_depth)
@@ -1134,6 +1384,19 @@ def fused_dev_specs(h64: int, w64: int, ctb: int):
     return dec_specs(h64, w64) + finish_specs(h64, w64, ctb)
 
 
+def b_dec_specs(h64: int, w64: int):
+    nby, nbx = h64 // 8, w64 // 8
+    return [("cu_log2_8", (nby, nbx), np.int32),
+            ("ref8", (2, nby, nbx), np.int32),
+            ("mv8_2l", (2, nby, nbx, 2), np.int32),
+            ("intra_mode8", (nby, nbx), np.int32),
+            ("tu_log2_8", (nby, nbx), np.int32)]
+
+
+def fused_b_dev_specs(h64: int, w64: int, ctb: int):
+    return b_dec_specs(h64, w64) + finish_specs(h64, w64, ctb)
+
+
 def merge_snap(src, ref_ext4, mv8, inter8, cu_log2_8, qp: int, col16_mv,
                col16_valid, tb: int, td: int, ctb_log2: int, w: int, h: int,
                bit_depth: int = 8):
@@ -1206,6 +1469,104 @@ def merge_snap(src, ref_ext4, mv8, inter8, cu_log2_8, qp: int, col16_mv,
         leaf_up = _rep(leaf & snap, k)
         out = torch.where(leaf_up[..., None], _rep(new_cu, k), out)
     return out
+
+
+def merge_snap_b(src, ext0, ext1, mv8_2l, ref8_2l, cu_log2_8, qp: int,
+                 ctb_log2: int, w: int, h: int, bit_depth: int = 8):
+    """Two-list merge alignment for B pictures (see merge_snap): a B CU
+    merges only when its whole motion (both lists' use flags and MVs)
+    equals a real merge candidate's, so the snap adopts the A1 / B1
+    neighbour's full motion (uni-L0 / uni-L1 / bi). Every candidate reads
+    the input field, so each list's decided field and every size's A1 / B1
+    fields go into one K2 launch. Returns (mv8_2l, ref8_2l)."""
+    srcf = src.to(torch.int32)
+    dev = srcf.device
+    lam = 2 * int(LAMBDA_SAD[qp])
+    nby, nbx = cu_log2_8.shape
+    inter_any = (ref8_2l >= 0).any(0)
+    u0_f = ref8_2l[0] >= 0
+    u1_f = ref8_2l[1] >= 0
+
+    per_size = []
+    fields = ([mv8_2l[0]], [mv8_2l[1]])
+    for s in (8, 16, 32, 64):
+        if (1 << ctb_log2) < s:
+            continue
+        k = s // 8
+        gy, gx = nby // k, nbx // k
+        ar_y = torch.arange(gy, device=dev)
+        ar_x = torch.arange(gx, device=dev)
+        rA1, cA1 = ar_y * k + (k - 1), ar_x * k - 1
+        rB1, cB1 = ar_y * k - 1, ar_x * k + (k - 1)
+
+        def nb(rr, cc, ok):
+            ri = rr.clamp_min(0)[:, None]
+            ci = cc.clamp_min(0)[None, :]
+            return (mv8_2l[:, ri, ci], torch.stack([u0_f[ri, ci],
+                                                    u1_f[ri, ci]]),
+                    ok & inter_any[ri, ci])
+
+        cands = (nb(rA1, cA1, (cA1 >= 0)[None, :]),
+                 nb(rB1, cB1, (rB1 >= 0)[:, None]))
+        for mvn, _, _ in cands:
+            for li in (0, 1):
+                fields[li].append(_rep(mvn[li], k))
+        per_size.append((s, k, cands))
+    raws = iter(zip(*(_mc_luma(ext, torch.stack(f), bit_depth, False)
+                      for ext, f in ((ext0, fields[0]),
+                                     (ext1, fields[1])))))
+    satd8_dec = _satd8_map(srcf - _bi_select(*next(raws), u0_f, u1_f, 8,
+                                             bit_depth))
+
+    out_mv = mv8_2l
+    out_ref = ref8_2l
+    for s, k, cands in per_size:
+        lg = s.bit_length() - 1
+        gy, gx = nby // k, nbx // k
+        leaf = (cu_log2_8[::k, ::k] == lg) & inter_any[::k, ::k]
+        mv_cu = mv8_2l[:, ::k, ::k]
+        u_cu = torch.stack([u0_f[::k, ::k], u1_f[::k, ::k]])
+        d_dec = _boxsum(satd8_dec, k)
+        # the decided motion at AMVP pricing: per used list, the MVD
+        # against the A1 MV
+        mvA = cands[0][0]
+        bits_dec = torch.full((gy, gx), AMVP_BASE_BITS, dtype=torch.int32,
+                              device=dev)
+        for li in range(2):
+            bl = (_mvd_bits_dev(mv_cu[li, ..., 0] - mvA[li, ..., 0])
+                  + _mvd_bits_dev(mv_cu[li, ..., 1] - mvA[li, ..., 1]))
+            bits_dec = bits_dec + torch.where(u_cu[li], bl, 0)
+        j_dec = d_dec + lam * bits_dec
+
+        best_j = torch.full((gy, gx), 1 << 30, dtype=torch.int32,
+                            device=dev)
+        best_mv = mv_cu
+        best_u = u_cu
+        already = torch.zeros((gy, gx), dtype=torch.bool, device=dev)
+        for (mvn, un, vn), bits_c in zip(cands, (2, 3)):
+            same = ((mvn == mv_cu).all(0).all(-1) & (un == u_cu).all(0)
+                    & vn)
+            already = already | same
+            pred_c = _bi_select(*next(raws), _rep(un[0], k),
+                                _rep(un[1], k), 8, bit_depth)
+            d_c = _boxsum(_satd8_map(srcf - pred_c), k)
+            j_c = torch.where(vn, d_c + lam * bits_c, 1 << 30)
+            take = j_c < best_j
+            best_j = torch.where(take, j_c, best_j)
+            best_mv = torch.where(take[None, ..., None], mvn, best_mv)
+            best_u = torch.where(take[None], un, best_u)
+        snap = leaf & ~already & (best_j <= j_dec + lam * SNAP_BIAS_BITS)
+        sn_up = _rep(leaf & snap, k)
+        new_mv = torch.where(snap[None, ..., None], best_mv, mv_cu)
+        new_u = torch.where(snap[None], best_u, u_cu)
+        out_mv = torch.where(sn_up[None, ..., None],
+                             torch.stack([_rep(new_mv[0], k),
+                                          _rep(new_mv[1], k)]), out_mv)
+        new_ref = torch.where(new_u, 0, -1).to(out_ref.dtype)
+        out_ref = torch.where(sn_up[None],
+                              torch.stack([_rep(new_ref[0], k),
+                                           _rep(new_ref[1], k)]), out_ref)
+    return out_mv, out_ref
 
 
 def _fast_p_front(src_y, ref_y, hme_mv, qp: int, col16_mv, col16_valid,
@@ -1294,6 +1655,104 @@ def fast_p_fused_dev(src_y, src_cb, src_cr, ref_y, ref_cb, ref_cr, hme_mv,
         cu_log2_8, inter8, mv8, mode8, qp, qp_c, lam,
         ctb_log2=ctb_log2, w=w, h=h, bit_depth=bit_depth, dlf=dlf,
         sao=sao, min_intra_log2=min_intra_log2)
+
+
+def _fast_b_front(src_y, src_cb, src_cr, ref0_y, ref0_cb, ref0_cr,
+                  ref1_y, ref1_cb, ref1_cr, hme_mv0, hme_mv1, qp: int,
+                  qp_c: int, lam: float, ctb_log2: int, w: int, h: int,
+                  bit_depth: int = 8,
+                  min_intra_log2: int = P_MIN_INTRA_LOG2,
+                  subpel_min: int = 16):
+    """B-picture front half: dense MD per list, the two-list quadtree
+    decision, merge alignment passes and the B encode pass. Only the
+    intra-free branch (min_intra_log2 >= 6) exists in this port. Where
+    both lists hold the same reference and HME field (low-delay B), the
+    second list's dense MD is the first's."""
+    if min_intra_log2 < 6:
+        raise NotImplementedError(
+            "intra CUs in B pictures (presets M8-M9) are not ported yet")
+    with stage("b.dense_md_p"):
+        md0 = dense_md_p(src_y, ref0_y, hme_mv0, bit_depth=bit_depth, qp=qp,
+                         subpel_min=subpel_min)
+    if ref1_y is ref0_y and hme_mv1 is hme_mv0:
+        md1 = md0
+    else:
+        with stage("b.dense_md_p"):
+            md1 = dense_md_p(src_y, ref1_y, hme_mv1, bit_depth=bit_depth,
+                             qp=qp, subpel_min=subpel_min)
+    with stage("b.decide_tree_b_dev"):
+        cu_log2_8, ref8_2l, mv8_2l, mode8 = decide_tree_b_dev(
+            md0, md1, {}, ctb_log2, src_y, ref0_y, ref1_y,
+            min_intra_log2=min_intra_log2, w=w, h=h, qp=qp,
+            bit_depth=bit_depth)
+    ext0 = _ext_y(ref0_y)
+    ext1 = ext0 if ref1_y is ref0_y else _ext_y(ref1_y)
+    for _ in range(SNAP_PASSES):
+        with stage("b.merge_snap_b"):
+            mv8_2l, ref8_2l = merge_snap_b(
+                src_y, ext0, ext1, mv8_2l, ref8_2l, cu_log2_8, qp,
+                ctb_log2=ctb_log2, w=w, h=h, bit_depth=bit_depth)
+    with stage("b.encode_pass_b_direct"):
+        out = encode_pass_b_direct(
+            src_y, src_cb, src_cr, (ref0_y, ref0_cb, ref0_cr),
+            (ref1_y, ref1_cb, ref1_cr), mv8_2l, ref8_2l,
+            torch.clamp_max(cu_log2_8, 5), qp, qp_c, bit_depth=bit_depth,
+            lam=_f32(np.float32(lam) * np.float32(INTER_ZERO_LAMBDA_SCALE)),
+            tu_split=True, cu_log2_8=cu_log2_8)
+    rec3 = (out["rec_y"], out["rec_cb"], out["rec_cr"])
+    lv3 = (out["lv_y"], out["lv_cb"], out["lv_cr"])
+    return cu_log2_8, ref8_2l, mv8_2l, mode8, out["tu8"], rec3, lv3
+
+
+def _fast_b_finish(src_y, src_cb, src_cr, cu_log2_8, ref8_2l, mv8_2l,
+                   mode8, tu8, rec3, lv3, poc_delta0: int, poc_delta1: int,
+                   qp: int, qp_c: int, lam: float, ctb_log2: int, w: int,
+                   h: int, bit_depth: int = 8, dlf: bool = True,
+                   sao: bool = True):
+    """B-picture finish half: DLF (two-list bS rule) + SAO + pack. The
+    bS rule compares reference POCs; with the current POC as 0 the
+    per-list POC deltas serve (only equality and order matter)."""
+    inter8 = (ref8_2l >= 0).any(0)
+    refpoc8 = torch.stack([
+        torch.where(ref8_2l[0] >= 0, poc_delta0, _POC_NONE),
+        torch.where(ref8_2l[1] >= 0, poc_delta1, _POC_NONE)]).to(torch.int32)
+    with stage("b._finish_fused"):
+        packed_fin, rec_y, rec_cb, rec_cr, lv_full = _finish_fused(
+            (src_y, src_cb, src_cr), rec3, lv3, cu_log2_8, inter8,
+            mv8_2l[0], tu8, qp, qp_c, lam, ctb_log2, w, h, bit_depth, dlf,
+            sao, refpoc8=refpoc8, mv8_2l=mv8_2l)
+    packed = torch.cat(
+        [_pack([cu_log2_8, ref8_2l, mv8_2l, mode8, tu8], torch.int16),
+         packed_fin])
+    return packed, rec_y, rec_cb, rec_cr, lv_full
+
+
+def fast_b_fused_dev(src_y, src_cb, src_cr, ref0_y, ref0_cb, ref0_cr,
+                     ref1_y, ref1_cb, ref1_cr, hme_mv0, hme_mv1,
+                     poc_delta0: int, poc_delta1: int, qp: int, qp_c: int,
+                     lam: float, ctb_log2: int, w: int, h: int,
+                     bit_depth: int = 8, dlf: bool = True, sao: bool = True,
+                     min_intra_log2: int = P_MIN_INTRA_LOG2,
+                     subpel_min: int = 16):
+    """Device-resident B-picture pipeline (front: dense MD per list,
+    decision, merge snap, encode pass; finish: DLF with the two-list bS
+    rule, SAO, pack). Returns (packed, rec_y, rec_cb, rec_cr,
+    col16_mv_out, col16_valid_out, lv_full); the collocated output is the
+    decided motion, L0-preferred, 16x16-compressed."""
+    cu_log2_8, ref8_2l, mv8_2l, mode8, tu8, rec3, lv3 = _fast_b_front(
+        src_y, src_cb, src_cr, ref0_y, ref0_cb, ref0_cr, ref1_y, ref1_cb,
+        ref1_cr, hme_mv0, hme_mv1, qp, qp_c, lam, ctb_log2=ctb_log2, w=w,
+        h=h, bit_depth=bit_depth, min_intra_log2=min_intra_log2,
+        subpel_min=subpel_min)
+    packed, rec_y, rec_cb, rec_cr, lv_full = _fast_b_finish(
+        src_y, src_cb, src_cr, cu_log2_8, ref8_2l, mv8_2l, mode8, tu8,
+        rec3, lv3, poc_delta0, poc_delta1, qp, qp_c, lam,
+        ctb_log2=ctb_log2, w=w, h=h, bit_depth=bit_depth, dlf=dlf, sao=sao)
+    use0 = ref8_2l[0] >= 0
+    col_mv = torch.where(use0[..., None], mv8_2l[0], mv8_2l[1])
+    col_valid = use0 | (ref8_2l[1] >= 0)
+    return (packed, rec_y, rec_cb, rec_cr, col_mv[::2, ::2].contiguous(),
+            col_valid[::2, ::2].contiguous(), lv_full)
 
 
 def fast_i_fused_dev(src_y, src_cb, src_cr, qp: int, qp_c: int, lam: float,

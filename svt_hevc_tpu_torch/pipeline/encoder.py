@@ -1,15 +1,19 @@
 """Encoder pipeline on the card: frames -> Annex-B HEVC byte stream.
 
 Port of svt_hevc_tpu/pipeline/encoder.py for the slice this package
-covers: CQP, low-delay P (IPPP, and its hierarchical form), one
-reference per picture, 8-bit 4:2:0, one tile,
-presets whose P pictures carry no intra CUs (M6-M7, M10-M11). I pictures
-take gpu.encode.fast_i_fused_dev, P pictures gpu.me.hme_search then
-gpu.encode.fast_p_fused_dev; the host walk and the native emitter write
-the syntax. Reconstructions stay on the device as the next picture's
-reference (the device DPB), each picture's decided motion stays on the
-device as the next picture's TMVP source, and a picture's download and
-host walk overlap the next picture's device work (one frame deep).
+covers: CQP; low-delay P (IPPP, and its hierarchical form), low-delay B,
+and random access (hierarchical B, closed GOP with IDR refresh or open
+GOP with CRA refresh and RASL pictures); one reference per list, 8-bit
+4:2:0, one tile, presets whose inter pictures carry no intra CUs (M6-M7,
+M10-M11). I pictures take gpu.encode.fast_i_fused_dev, P pictures
+gpu.me.hme_search then gpu.encode.fast_p_fused_dev, B pictures one
+hme_search per distinct reference then gpu.encode.fast_b_fused_dev; the
+host walk and the native emitter write the syntax. Reconstructions stay
+on the device as later pictures' references (the device DPB), each
+picture's decided motion stays on the device as a later P picture's TMVP
+source, and in low-delay structures a picture's download and host walk
+overlap the next picture's device work (one frame deep); random access
+pictures are encoded one at a time, as in the JAX package.
 
 A configuration outside the slice raises NotImplementedError; there is
 no host CTU path to fall back to.
@@ -74,9 +78,6 @@ def slice_unsupported(cfg: EncoderConfig) -> str | None:
     brings it), or None when this package encodes it."""
     feat = derive_preset(cfg.enc_mode)
     checks = (
-        (cfg.pred_structure != 0,
-         "B pictures and random access (pred_structure 1/2) come with the "
-         "B-picture slice"),
         (cfg.tile_columns * cfg.tile_rows != 1
          or cfg.constrained_motion_tiles,
          "tiles come with the multi-device slice"),
@@ -188,14 +189,15 @@ class EncodedAu:
     data: bytes               # slice NAL(s) + per-AU SEI (Annex-B)
     recon: Frame
     poc: int
-    slice_type: int           # 2 I, 1 P
+    slice_type: int           # 2 I, 1 P, 0 B
     is_idr: bool
     display_idx: int
     decode_idx: int
 
 
 class Encoder:
-    """HEVC encoder (CQP, IPPP) whose pixel stages run on the card.
+    """HEVC encoder (CQP; low-delay P or B, random access) whose pixel
+    stages run on the card.
 
     device: None (the default) runs on torch.device("cuda") and raises
     where there is no CUDA device; "cpu" runs every stage with the
@@ -305,19 +307,23 @@ class Encoder:
         return wrap_nal(NalUnitType.PREFIX_SEI_NUT, sei.sei_rbsp(msgs))
 
     def encode_frame(self, frame: Frame, *, is_idr: bool | None = None,
-                     poc: int = 0, qp: int | None = None, refs_l0=None,
-                     non_ref: bool = False, retain_pocs=None,
-                     pipelined: bool = False):
-        """Encode one picture: an IDR when is_idr, else a P picture.
-        refs_l0: [(planes, poc)], the one list-0 reference (None: the
-        previous picture). non_ref: a picture no other picture references
-        (TRAIL_N; kept out of the device DPB and the TMVP caches).
-        retain_pocs: POCs that future pictures still reference, signalled
-        in the RPS with used_by_curr_pic=0. Returns an EncodedPicture, or
-        a PendingPicture when pipelined."""
+                     poc: int = 0, qp: int | None = None,
+                     slice_type: int | None = None, refs_l0=None,
+                     refs_l1=None, non_ref: bool = False, retain_pocs=None,
+                     pipelined: bool = False, nal_type_override=None):
+        """Encode one picture: slice_type 2 (I: an IDR when is_idr, else a
+        CRA that keeps the DPB), 1 (P) or 0 (B); None derives I or P from
+        is_idr. refs_l0/refs_l1: [(planes, poc)], one reference per list
+        (L0 None: the previous picture; a B picture without L1 takes L1 =
+        L0, low-delay B). non_ref: a picture no other picture references
+        (kept out of the device DPB and the TMVP caches). retain_pocs:
+        POCs that future pictures still reference, signalled in the RPS
+        with used_by_curr_pic=0. nal_type_override: the NAL unit type
+        (CRA, RASL) where the caller sets it. Returns an EncodedPicture,
+        or a PendingPicture when pipelined."""
         from ..gpu import encode as genc
         from ..gpu.me import hme_search
-        from .fast_path import run_fast_i, run_fast_p
+        from .fast_path import run_fast_b, run_fast_i, run_fast_p
 
         cfg = self.cfg
         if frame.segment_ov is not None:
@@ -329,14 +335,22 @@ class Encoder:
             is_idr = self._ref_planes is None and refs_l0 is None
         if qp is None:
             qp = cfg.qp
-        slice_type = 2 if is_idr else 1
-        if is_idr:
-            refs_l0 = None
-        elif refs_l0 is None:
+        if slice_type is None:
+            slice_type = 2 if is_idr else 1
+        if not is_idr and refs_l0 is None and slice_type != 2:
             refs_l0 = [(self._ref_planes, self._ref_poc)]
-        init_type = {2: 0, 1: 1}[slice_type]
-        # TMVP collocated picture: list-0 ref 0
-        col_poc = refs_l0[0][1] if cfg.tmvp and not is_idr else None
+        if slice_type == 0 and not refs_l1:
+            refs_l1 = list(refs_l0)          # low-delay B: L1 = L0
+        if slice_type != 2 and (len(refs_l0) != 1
+                                or (slice_type == 0 and len(refs_l1) != 1)):
+            raise NotImplementedError(
+                "more than one reference per list is not ported")
+        init_type = {2: 0, 1: 1, 0: 2}[slice_type]
+        # TMVP collocated picture: list-0 ref 0 (collocated_from_l0 is
+        # signalled 1 for B slices)
+        col_poc = (refs_l0[0][1]
+                   if cfg.tmvp and not is_idr and refs_l0
+                   and slice_type != 2 else None)
         cw, ch = cfg.coded_width, cfg.coded_height
         cw_c, ch_c = cw // cfg.sub_width_c, ch // cfg.sub_height_c
         src = [
@@ -355,30 +369,53 @@ class Encoder:
                           chroma_format=cfg.chroma_format)
         st.constrained_intra = cfg.constrained_intra
         st.max_tt_depth_inter = 2     # matches the SPS (write_sps)
-        if not is_idr:
+        if not is_idr and refs_l0:      # a CRA has no reference lists
             st.slice_type = slice_type
-            st.ref_planes = [[r[0] for r in refs_l0], []]
-            st.ref_pocs = [[r[1] for r in refs_l0], []]
+            st.ref_planes = [[r[0] for r in refs_l0],
+                             [r[0] for r in (refs_l1 or [])]]
+            st.ref_pocs = [[r[1] for r in refs_l0],
+                           [r[1] for r in (refs_l1 or [])]]
             st.poc = poc
 
         # ---- device context: ship the source once (uint8), keep the
         # reference planes device-resident between frames
         w64, h64 = (cw + 63) // 64 * 64, (ch + 63) // 64 * 64
         dt = np.uint8
-        kind = "i" if is_idr else "p"
+        kind = {2: "i", 1: "p", 0: "b"}[slice_type]
+
+        def dev_ref(entry):
+            """A reference's device planes: the device DPB's, else (an
+            evicted reference) uploaded again from its host planes."""
+            got = self._dev_dpb.get((entry[1], w64, h64))
+            if got is None:
+                rp = entry[0]
+                got = genc.prep_planes(rp[0].astype(dt), rp[1].astype(dt),
+                                       rp[2].astype(dt), w64, h64,
+                                       self.device)
+            return got
+
         with genc.stage(f"{kind}.upload"):
             src_dev = genc.prep_planes(frame.y, frame.cb, frame.cr, w64, h64,
                                        self.device)
-        if is_idr:
+        if slice_type == 2:
             packed, rec_dev, mot_dev, lv_dev = run_fast_i(
                 cfg, feat, st, qp, src_dev)
+        elif slice_type == 0:
+            ref_dev = dev_ref(refs_l0[0])
+            ref1_dev = (ref_dev if refs_l1[0][1] == refs_l0[0][1]
+                        else dev_ref(refs_l1[0]))
+            with genc.stage("b.hme_search"):
+                mv_dev = hme_search(src_dev[0], ref_dev[0])[0]
+            if ref1_dev is ref_dev:
+                mv1_dev = mv_dev
+            else:
+                with genc.stage("b.hme_search"):
+                    mv1_dev = hme_search(src_dev[0], ref1_dev[0])[0]
+            packed, rec_dev, mot_dev, lv_dev = run_fast_b(
+                cfg, feat, st, qp, mv_dev, mv1_dev, src_dev, ref_dev,
+                ref1_dev)
         else:
-            ref_dev = self._dev_dpb.get((refs_l0[0][1], w64, h64))
-            if ref_dev is None:
-                rp = refs_l0[0][0]
-                ref_dev = genc.prep_planes(rp[0].astype(dt), rp[1].astype(dt),
-                                           rp[2].astype(dt), w64, h64,
-                                           self.device)
+            ref_dev = dev_ref(refs_l0[0])
             with genc.stage("p.hme_search"):
                 mv_dev = hme_search(src_dev[0], ref_dev[0])[0]
             # device-resident TMVP collocated motion of the L0 reference
@@ -398,11 +435,14 @@ class Encoder:
             if is_idr:
                 self._dev_motion.clear()
             self._dev_motion[(poc, w64, h64)] = (
-                mot_dev[0], mot_dev[1], None if is_idr else refs_l0[0][1])
+                mot_dev[0], mot_dev[1],
+                refs_l0[0][1] if (refs_l0 and not is_idr
+                                  and slice_type != 2) else None)
             while len(self._dev_motion) > self._dev_motion_cap:
                 del self._dev_motion[next(iter(self._dev_motion))]
 
-        all_ref_pocs = {r[1] for r in (refs_l0 or [])}
+        all_ref_pocs = ({r[1] for r in (refs_l0 or [])}
+                        | {r[1] for r in (refs_l1 or [])})
         keep = set(retain_pocs or ()) | all_ref_pocs
         keep.discard(poc)
         negs = [(poc - rp, int(rp in all_ref_pocs))
@@ -410,9 +450,11 @@ class Encoder:
                                  reverse=True)]
         poss = [(rp - poc, int(rp in all_ref_pocs))
                 for rp in sorted(p for p in keep if p > poc)]
-        nal_type = (NalUnitType.IDR_W_RADL if is_idr
+        nal_type = (nal_type_override if nal_type_override is not None
+                    else NalUnitType.IDR_W_RADL if is_idr
                     else NalUnitType.TRAIL_N if non_ref
                     else NalUnitType.TRAIL_R)
+        irap = is_idr or nal_type == NalUnitType.CRA_NUT
 
         # ---- DPB update at dispatch time: the device recon becomes the
         # next reference directly; host views download lazily
@@ -436,7 +478,9 @@ class Encoder:
             st.col = self._col_for(col_poc)
             from .fast_path import complete_fast
             with genc.stage(f"{kind}.download"):
-                maps, sao_np = complete_fast(cfg, st, packed, lv_dev=lv_dev)
+                maps, sao_np = complete_fast(cfg, st, packed,
+                                             b_form=slice_type == 0,
+                                             lv_dev=lv_dev)
             with genc.stage(f"{kind}.host_emit"):
                 substr = self._encode_fast(st, src, maps, sao_np, qp, feat,
                                            order, last_xy, init_type)
@@ -456,7 +500,7 @@ class Encoder:
             w = write_slice_header(cfg, slice_qp=qp, is_idr=is_idr,
                                    poc=poc, slice_type=slice_type,
                                    entry_points=[], neg_deltas=negs,
-                                   pos_deltas=poss, irap=is_idr)
+                                   pos_deltas=poss, irap=irap)
             w.write_bytes(payload)
             nal = wrap_nal(nal_type, w.get_bytes())
 
@@ -486,7 +530,14 @@ class Encoder:
 
     def encode(self, frames, *, frame_qps=None) -> tuple[bytes, list]:
         """Encode an iterable of frames; returns (annex_b_stream, recons in
-        display order). frame_qps: optional per-frame QP list."""
+        display order). frame_qps: optional per-frame QP list (not read by
+        random access, which takes the configured QP plus its layer
+        offsets)."""
+        if self.cfg.pred_structure == 2:
+            stream, recons = self._encode_random_access(list(frames))
+            if self.cfg.code_eos_nal:
+                stream += wrap_nal(NalUnitType.EOS_NUT, b"")
+            return stream, recons
         chunks = [self.headers()]
         recons = []
         for au in self.encode_pictures(frames, frame_qps=frame_qps):
@@ -498,17 +549,22 @@ class Encoder:
 
     def encode_pictures(self, frames, *, frame_qps=None):
         """Streaming form of encode(): yields one EncodedAu per picture in
-        decode order, without the parameter-set headers."""
+        decode order, without the parameter-set headers. Random access
+        yields each access unit as it is encoded (not pipelined)."""
         from .rate_control import RateControl
         # a new stream never motion-compensates against a previous
         # stream's device-resident references
         self._dev_dpb.clear()
         self._ref_motion.clear()
+        if self.cfg.pred_structure == 2:
+            yield from self._ra_pictures(list(frames))
+            return
         rc = RateControl(self.cfg)
         self.last_rc = rc
         prev_y = None
         pending = None
-        # hierarchical low-delay P: layer-L pictures reference the most
+        b_slices = self.cfg.pred_structure == 1     # low-delay B
+        # hierarchical low-delay: layer-L pictures reference the most
         # recent lower-layer picture, top-layer pictures are
         # non-referenced (TRAIL_N), and CQP adds per-layer QP offsets
         hl = self.cfg.hierarchical_levels
@@ -564,14 +620,15 @@ class Encoder:
             # every layer's most recent picture can still be referenced by
             # later pictures: keep them alive in the decoder's DPB
             retain = {e[2] for e in ll_last.values()}
-            stype = 2 if is_idr else 1
+            stype = 2 if is_idr else (0 if b_slices else 1)
             meta = (idx, is_idr, stype, qp)
             # one-frame-deep pipelining: dispatch this frame's device work
             # before finalizing the previous frame, so the host walk
             # overlaps the device compute + download
             res = self.encode_frame(fr, is_idr=is_idr, poc=rel, qp=qp,
-                                    refs_l0=refs_l0, non_ref=non_ref,
-                                    retain_pocs=retain, pipelined=True)
+                                    slice_type=stype, refs_l0=refs_l0,
+                                    non_ref=non_ref, retain_pocs=retain,
+                                    pipelined=True)
             if hl > 0 and (layer < hl or is_idr):
                 ll_last[0 if is_idr else layer] = (idx, res.ref_planes, rel)
             if pending is not None:
@@ -579,6 +636,180 @@ class Encoder:
             pending = (res, meta)
         if pending is not None:
             yield _emit(*pending)
+
+    # ------------------------------------------------------ random access
+
+    def _encode_random_access(self, frames):
+        self._dev_dpb.clear()
+        self._ref_motion.clear()
+        chunks = [self.headers()]
+        recons: list = [None] * len(frames)
+        for au in self._ra_pictures(frames):
+            chunks.append(au.data)
+            recons[au.display_idx] = au.recon
+        return b"".join(chunks), recons
+
+    def _ra_pictures(self, frames):
+        """Random access with periodic IDR refresh (closed GOP): the
+        stream is cut into independent segments of intra_period+1
+        pictures, each a closed hierarchical-B GOP with its own IDR and
+        POC base. With intra_refresh_type=1 the stream is one continuous
+        open GOP with CRA refresh points and RASL leading pictures
+        (_ra_pictures_open). No scene-cut detection runs here."""
+        cfg = self.cfg
+        if cfg.intra_refresh_type == 1 and cfg.intra_period > 0:
+            yield from self._ra_pictures_open(frames)
+            return
+        seg_len = (cfg.intra_period + 1 if cfg.intra_period > 0
+                   else len(frames))
+        dec_base = 0
+        for seg_start in range(0, len(frames), max(seg_len, 1)):
+            seg = frames[seg_start:seg_start + seg_len]
+            for au in self._ra_segment(seg):
+                yield EncodedAu(
+                    data=au.data, recon=au.recon, poc=au.poc,
+                    slice_type=au.slice_type, is_idr=au.is_idr,
+                    display_idx=seg_start + au.display_idx,
+                    decode_idx=dec_base + au.decode_idx)
+            dec_base += len(seg)
+
+    @staticmethod
+    def _future_refs(schedule) -> list[set]:
+        """Per decode position, the POCs that pictures later in decode
+        order reference (kept in the DPB as used=0 RPS entries)."""
+        out: list[set] = [set() for _ in schedule]
+        acc: set = set()
+        for i in range(len(schedule) - 1, -1, -1):
+            out[i] = acc.copy()
+            l0, l1 = schedule[i][2:4]
+            acc |= {r for r in (l0, l1) if r is not None}
+        return out
+
+    def _ra_segment(self, frames):
+        """Hierarchical-B mini-GOPs: anchors form a P chain, interior
+        pictures are bi-predicted from the two enclosing pictures,
+        recursively. AUs are yielded in decode order as each is encoded;
+        display_idx gives the presentation order."""
+        cfg = self.cfg
+        gop = 1 << max(cfg.hierarchical_levels, 1)
+        n = len(frames)
+
+        schedule = [(0, 2, None, None, 0)]      # (idx, type, l0, l1, layer)
+        pos = 0
+        while pos + 1 < n:
+            end = min(pos + gop, n - 1)
+            schedule.append((end, 1, pos, None, 0))
+
+            def rec(a, b, layer):
+                if b - a < 2:
+                    return
+                m = (a + b) // 2
+                schedule.append((m, 0, a, b, layer))
+                rec(a, m, layer + 1)
+                rec(m, b, layer + 1)
+
+            rec(pos, end, 1)
+            pos = end
+
+        dpb: dict[int, object] = {}             # poc -> planes
+        # DPB output delays: display index minus decode index, shifted so
+        # the minimum is zero (output times stay causal under reordering)
+        raw = [i - d for d, (i, *_rest) in enumerate(schedule)]
+        base_delay = -min(raw) if raw else 0
+        future_refs = self._future_refs(schedule)
+        for dec_idx, (idx, stype, l0, l1, layer) in enumerate(schedule):
+            qp = min(cfg.qp + (layer + 1 if stype == 0 else 0), 51)
+            refs_l0 = [(dpb[l0], l0)] if l0 is not None else None
+            refs_l1 = [(dpb[l1], l1)] if l1 is not None else None
+            retain = {r for r in future_refs[dec_idx]
+                      if r != idx and r in dpb}
+            pic = self.encode_frame(frames[idx], qp=qp, poc=idx,
+                                    is_idr=stype == 2, slice_type=stype,
+                                    refs_l0=refs_l0, refs_l1=refs_l1,
+                                    retain_pocs=retain)
+            dpb[idx] = pic.ref_planes
+            data = pic.nal_bytes
+            if cfg.enable_hrd:
+                data = self._hrd_sei(stype == 2,
+                                     idx - dec_idx + base_delay) + data
+            yield EncodedAu(data=data, recon=pic.recon, poc=idx,
+                            slice_type=stype, is_idr=stype == 2,
+                            display_idx=idx, decode_idx=dec_idx)
+            # prune pictures older than the current mini-GOP window
+            for k in [k for k in dpb if k < idx - 2 * gop]:
+                del dpb[k]
+
+    def _ra_pictures_open(self, frames):
+        """CRA open-GOP random access: one continuous coded video
+        sequence whose intra refresh points are CRA pictures (POC
+        continues, the DPB survives). The hierarchical-B pictures between
+        the previous anchor and a CRA reference across it; they decode
+        after the CRA but display before it, so they go out as RASL_R /
+        RASL_N leading pictures, which a decoder tuning in at the CRA
+        drops."""
+        cfg = self.cfg
+        gop = 1 << max(cfg.hierarchical_levels, 1)
+        n = len(frames)
+        intra_pos = set(range(0, n, cfg.intra_period + 1))
+
+        # (idx, slice_type, l0, l1, layer, rasl)
+        schedule = [(0, 2, None, None, 0, False)]
+        pos = 0
+        while pos + 1 < n:
+            nxt_i = min((p for p in intra_pos if p > pos), default=n - 1)
+            end = min(pos + gop, nxt_i, n - 1)
+            is_intra = end in intra_pos
+            schedule.append((end, 2 if is_intra else 1,
+                             None if is_intra else pos, None, 0, False))
+
+            def rec(a, b, layer, rasl):
+                if b - a < 2:
+                    return
+                m = (a + b) // 2
+                schedule.append((m, 0, a, b, layer, rasl))
+                rec(a, m, layer + 1, rasl)
+                rec(m, b, layer + 1, rasl)
+
+            # interior pictures of a CRA-terminated mini-GOP are leading
+            # pictures of that CRA (display < CRA <= decode) -> RASL
+            rec(pos, end, 1, is_intra)
+            pos = end
+
+        dpb: dict[int, object] = {}
+        raw = [i - d for d, (i, *_r) in enumerate(schedule)]
+        base_delay = -min(raw) if raw else 0
+        future_refs = self._future_refs(schedule)
+        for dec_idx, (idx, stype, l0, l1, layer, rasl) in \
+                enumerate(schedule):
+            qp = min(cfg.qp + (layer + 1 if stype == 0 else 0), 51)
+            refs_l0 = [(dpb[l0], l0)] if l0 is not None else None
+            refs_l1 = [(dpb[l1], l1)] if l1 is not None else None
+            retain = {r for r in future_refs[dec_idx]
+                      if r != idx and r in dpb}
+            is_idr = stype == 2 and idx == 0
+            non_ref = (stype == 0 and layer >= cfg.hierarchical_levels
+                       and idx not in future_refs[dec_idx])
+            nal = None
+            if stype == 2 and not is_idr:
+                nal = NalUnitType.CRA_NUT
+            elif rasl:
+                nal = (NalUnitType.RASL_N if non_ref
+                       else NalUnitType.RASL_R)
+            pic = self.encode_frame(frames[idx], qp=qp, poc=idx,
+                                    is_idr=is_idr, slice_type=stype,
+                                    refs_l0=refs_l0, refs_l1=refs_l1,
+                                    retain_pocs=retain,
+                                    nal_type_override=nal)
+            dpb[idx] = pic.ref_planes
+            data = pic.nal_bytes
+            if cfg.enable_hrd:
+                data = self._hrd_sei(is_idr,
+                                     idx - dec_idx + base_delay) + data
+            yield EncodedAu(data=data, recon=pic.recon, poc=idx,
+                            slice_type=stype, is_idr=is_idr,
+                            display_idx=idx, decode_idx=dec_idx)
+            for k in [k for k in dpb if k < idx - 2 * gop]:
+                del dpb[k]
 
     def _encode_fast(self, st, src, maps, sao_np, qp, feat, order, last_xy,
                      init_type) -> list[bytes]:

@@ -1,13 +1,14 @@
-"""Fast I/P-picture path: device pipeline + host syntax walk.
+"""Fast I/P/B-picture path: device pipeline + host syntax walk.
 
 Port of svt_hevc_tpu/pipeline/fast_path.py. The host halves are copies
 (DecisionMaps, FastCtuEncoder, the packed-buffer unpacking);
-``run_fast_p`` / ``run_fast_i`` dispatch the device pipelines of
-gpu/encode.py on torch tensors:
+``run_fast_p`` / ``run_fast_b`` / ``run_fast_i`` dispatch the device
+pipelines of gpu/encode.py on torch tensors:
 
   1. dense inter search + quadtree decision + merge alignment
-     (gpu.encode._fast_p_front), or open-loop intra search + intra
-     decision + closed-loop wavefront (gpu.encode.fast_i_fused_dev);
+     (gpu.encode._fast_p_front; _fast_b_front for both lists of a B
+     picture), or open-loop intra search + intra decision + closed-loop
+     wavefront (gpu.encode.fast_i_fused_dev);
   2. the normative encode pass, deblocking and SAO on the device;
   3. one packed download, then ``FastCtuEncoder`` (or the native emitter)
      records the syntax from the decision maps.
@@ -259,17 +260,39 @@ def run_fast_p(cfg, feat, st, qp, mv_dev, src_dev, ref_dev, col_dev,
             lv_dev)
 
 
-def complete_fast(cfg, st, packed, lv_dev=None):
-    """Blocking half of run_fast_p / run_fast_i: fetch the packed device
-    buffer and build the host-side maps. Kept separate so the caller can
-    dispatch the NEXT frame's work before this download + walk
-    (frames-in-flight). lv_dev: the device-resident full coefficient
+def run_fast_b(cfg, feat, st, qp, mv0_dev, mv1_dev, src_dev, ref0_dev,
+               ref1_dev):
+    """Device stages for one B picture (dense MD per list, two-list
+    quadtree decision, merge alignment, B encode pass, DLF with the
+    two-list bS rule, SAO, pack): the B analogue of run_fast_p. The bS
+    rule takes each list's reference POC relative to this picture's."""
+    from ..gpu import encode as genc
+
+    (packed, rec_y, rec_cb, rec_cr, out_mv, out_valid,
+     lv_dev) = genc.fast_b_fused_dev(
+            *src_dev, *ref0_dev, *ref1_dev, mv0_dev, mv1_dev,
+            int(st.ref_pocs[0][0] - st.poc), int(st.ref_pocs[1][0] - st.poc),
+            int(qp), int(st.qp_c), _lam32(qp),
+            ctb_log2=st.ctb_log2, w=st.w, h=st.h, bit_depth=st.bit_depth,
+            dlf=cfg.enable_deblocking, sao=cfg.enable_sao,
+            min_intra_log2=feat.p_min_intra_log2,
+            subpel_min=feat.subpel_min_size)
+    return (packed, (rec_y, rec_cb, rec_cr), (out_mv, out_valid),
+            lv_dev)
+
+
+def complete_fast(cfg, st, packed, b_form: bool = False, lv_dev=None):
+    """Blocking half of run_fast_p / run_fast_i / run_fast_b: fetch the
+    packed device buffer and build the host-side maps. Kept separate so
+    the caller can dispatch the NEXT frame's work before this download +
+    walk (frames-in-flight). lv_dev: the device-resident full coefficient
     planes, downloaded only when the sparse download overflowed."""
     from ..gpu import encode as genc
     cw, ch = st.w, st.h
     w64 = (cw + 63) // 64 * 64
     h64 = (ch + 63) // 64 * 64
-    specs = genc.fused_dev_specs(h64, w64, cfg.ctb_size)
+    specs = (genc.fused_b_dev_specs if b_form
+             else genc.fused_dev_specs)(h64, w64, cfg.ctb_size)
     out = genc.unpack(packed.cpu().numpy(), specs)
     return _build_maps(st, out, lv_dev)
 
@@ -290,9 +313,19 @@ def _build_maps(st, out: dict, lv_dev=None):
     """(DecisionMaps, sao param arrays) from unpacked download dicts.
     Reconstruction stays device-resident — nothing writes st.planes."""
     cw, ch = st.w, st.h
-    maps = DecisionMaps(cu_log2_8=out["cu_log2_8"], inter8=out["inter8"],
-                        mv8=out["mv8"], intra_mode8=out["intra_mode8"],
-                        tu_log2_8=out["tu_log2_8"])
+    if "ref8" in out:
+        ref8 = out["ref8"]
+        mv8_2l = out["mv8_2l"]
+        maps = DecisionMaps(cu_log2_8=out["cu_log2_8"],
+                            inter8=(ref8 >= 0).any(0),
+                            mv8=mv8_2l[0], intra_mode8=out["intra_mode8"],
+                            tu_log2_8=out["tu_log2_8"],
+                            ref8=ref8, mv8_2l=mv8_2l)
+    else:
+        maps = DecisionMaps(cu_log2_8=out["cu_log2_8"],
+                            inter8=out["inter8"],
+                            mv8=out["mv8"], intra_mode8=out["intra_mode8"],
+                            tu_log2_8=out["tu_log2_8"])
     h64 = (ch + 63) // 64 * 64
     w64 = (cw + 63) // 64 * 64
     cnts = out["lv_counts"]

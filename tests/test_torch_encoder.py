@@ -117,7 +117,8 @@ def test_scene_cut_restarts_with_an_idr():
 def test_stage_hook_sees_every_stage_and_changes_no_byte():
     """gpu.encode.STAGE_TIMER (what tools/torch_stage_times.py times with)
     is called once per stage of every picture, in pipeline order, and the
-    stream is the one encoded without it."""
+    stream is the one encoded without it: low-delay P and random
+    access."""
     import contextlib
 
     import svt_hevc_tpu_torch.gpu.encode as genc
@@ -154,6 +155,28 @@ def test_stage_hook_sees_every_stage_and_changes_no_byte():
     # k is downloaded and emitted
     assert rec.names == (i_stages + p_stages + ["i.download", "i.host_emit"]
                          + p_stages + ["p.download", "p.host_emit"] * 2)
+
+    # random access (I0, P2, B1): no pipelining, and the B picture runs
+    # hme_search and dense_md_p once per list
+    cfg = EncoderConfig(width=128, height=64, qp=32, enc_mode=7,
+                        intra_period=-1, pred_structure=2,
+                        hierarchical_levels=2)
+    plain, _ = Encoder(cfg, device="cpu").encode(frames)
+    rec = Names()
+    genc.STAGE_TIMER = rec
+    try:
+        timed, _ = Encoder(cfg, device="cpu").encode(frames)
+    finally:
+        genc.STAGE_TIMER = None
+    assert timed == plain
+    b_stages = (["b.upload"] + ["b.hme_search"] * 2 + ["b.dense_md_p"] * 2
+                + ["b.decide_tree_b_dev"]
+                + ["b.merge_snap_b"] * genc.SNAP_PASSES
+                + ["b.encode_pass_b_direct", "b._finish_fused",
+                   "b.download", "b.host_emit"])
+    assert rec.names == (i_stages + ["i.download", "i.host_emit"]
+                         + p_stages + ["p.download", "p.host_emit"]
+                         + b_stages)
 
 
 def test_port_decoder_decodes_port_stream_to_recon(streams):
@@ -273,8 +296,8 @@ def test_encoder_without_device_needs_a_gpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pred_structure=2),
-    dict(pred_structure=1),
+    dict(constrained_intra=True),
+    dict(pred_structure=2, enc_mode=8),
     dict(tile_columns=2),
     dict(enc_mode=4),
     dict(enc_mode=8),

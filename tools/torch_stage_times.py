@@ -1,19 +1,22 @@
 """Where the time goes in the PyTorch/CUDA port at 1080p, on one GPU.
 
-    python3 tools/torch_stage_times.py [--frames N]
+    python3 tools/torch_stage_times.py [--frames N] [--structure ippp|ra]
 
-Encodes N frames of the benchmark content (1920x1080, M7, qp 32, IPPP)
-twice through Encoder.encode_pictures:
+Encodes N frames of the benchmark content (1920x1080, M7, qp 32; IPPP, or
+with --structure ra random access with hierarchical B, hl=2) twice
+through Encoder.encode_pictures:
 
   1. with the stage hook of gpu.encode (STAGE_TIMER) set: every stage of
      the picture pipelines (upload, hme_search, the fused device stages,
-     download, host emitter) runs between two torch.cuda.synchronize()
-     calls, so each stage's wall time includes its device work;
+     download, host emitter; "p.*" P, "b.*" B and "i.*" I pictures) runs
+     between two torch.cuda.synchronize() calls, so each stage's wall
+     time includes its device work;
   2. without the hook, on a fresh encoder, with torch.profiler tracing the
-     steady state: the dispatches of pictures 2..N-1 and the host walks of
-     pictures 1..N-2, as the encoder pipelines them. It reports the wall
-     time per picture, the device busy time (sum of device event times)
-     and the device's idle share.
+     steady state. IPPP: the dispatches of pictures 2..N-1 and the host
+     walks of pictures 1..N-2, as the encoder pipelines them. RA: every
+     picture after the IDR, one at a time (random access is not
+     pipelined). It reports the wall time per picture, the device busy
+     time (sum of device event times) and the device's idle share.
 
 The two streams must be byte-identical (the hook only times). Fails if
 the native host emitter did not build. Prints one JSON line.
@@ -57,6 +60,7 @@ class StageTimer:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--structure", choices=("ippp", "ra"), default="ippp")
     args = ap.parse_args()
     if args.frames < 4:
         ap.error("--frames must be at least 4 (two warm-up pictures)")
@@ -80,8 +84,10 @@ def main() -> int:
     K.build_all()
     n = args.frames
     frames = make_frames(n, 1920, 1080, seed=7)
+    ra = args.structure == "ra"
+    extra = dict(pred_structure=2, hierarchical_levels=2) if ra else {}
     cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
-                        enc_mode=7, intra_period=-1)
+                        enc_mode=7, intra_period=-1, **extra)
 
     # ---- 1. every stage synchronized
     timer = StageTimer(K.KERNELS)
@@ -96,7 +102,7 @@ def main() -> int:
         ent["s"].append(dt)
         ent["launches"].append(launches)
 
-    # ---- 2. the pipelined steady state under the profiler
+    # ---- 2. the steady state under the profiler
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window: dict = {}
@@ -113,27 +119,40 @@ def main() -> int:
         window["wall"] = time.perf_counter() - window["t0"]
         prof.stop()
 
-    plain = [au.data for au in Encoder(cfg).encode_pictures(feed())]
+    if ra:
+        gen = Encoder(cfg).encode_pictures(frames)
+        plain = [next(gen).data]                  # the IDR
+        torch.cuda.synchronize()
+        prof.start()
+        window["t0"] = time.perf_counter()
+        plain += [au.data for au in gen]
+        torch.cuda.synchronize()
+        window["wall"] = time.perf_counter() - window["t0"]
+        prof.stop()
+        pics = n - 1
+    else:
+        plain = [au.data for au in Encoder(cfg).encode_pictures(feed())]
+        pics = n - 2
     dev_us = 0.0
     n_events = 0
     for ev in prof.events():
         if "CUDA" in str(ev.device_type):
             dev_us += ev.time_range.elapsed_us()
             n_events += 1
-    pics = n - 2
     wall = window["wall"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     res = {
-        "card": smi, "frames": n, "streams_equal": staged == plain,
+        "card": smi, "frames": n, "structure": args.structure,
+        "streams_equal": staged == plain,
         "kernels": [k.name for k in K.KERNELS],
         "stages": {k: {"median_s": float(np.median(v["s"])),
                        "calls": len(v["s"]),
                        "launches_per_call": [
                            float(np.median(c)) for c in zip(*v["launches"])]}
                    for k, v in stages.items()},
-        "steady_p_profiled": {
+        ("after_idr_profiled" if ra else "steady_p_profiled"): {
             "pictures": pics, "wall_s_per_picture": wall / pics,
             "device_busy_s_per_picture": dev_us / 1e6 / pics,
             "device_idle_share": 1.0 - dev_us / 1e6 / wall,
