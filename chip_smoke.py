@@ -3,16 +3,17 @@
     python3 chip_smoke.py
 
 Phases (one line each, with seconds; any failure exits nonzero). The
-timed card phases (kernels, main, ra) run first with nothing else on the
-host; then the CPU reference encodes of every check run in worker
-processes while the card encodes the small clips:
+timed card phases (kernels, main, ra, cli_1080p) run first with nothing
+else on the host; then the CPU reference encodes of every check run in
+worker processes while the card encodes the small clips:
   1. card      name / power limit (nvidia-smi) and versions
   2. build     nvcc builds of the CUDA kernels (csrc/), all at once, with
                each kernel's registers, shared memory and spills, and
                the native host emitter (native/*.c, the system compiler)
   3. kernels   every kernel against its plain PyTorch version on the
                card at the 1080p main-path shapes (torch.equal), the
-               batched K2 shapes the callers use included, with two
+               batched K2 shapes the callers use included, 8-bit and
+               10-bit (K1 and K2 timed at both), with two
                times per variant: device_ms, the kernel's time (CUDA
                events around R_LAUNCHES back-to-back launches, over R),
                and call_ms, the host-inclusive time of one wrapper call
@@ -25,24 +26,58 @@ processes while the card encodes the small clips:
                the card: IDR, P-anchor and per-layer B seconds per
                picture, kernel launches per B picture (all > 0), recon
                PSNR
-  6. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
+  6. cli_1080p the command line (svt_hevc_tpu_torch.app's main, in a
+               subprocess on the card) on a seeded 1920x1080 10-bit raw
+               clip of 8 frames with new textured ramps on the odd
+               pictures:
+               -bit-depth 10 -encMode 8 -intra-period -1 -rc 1 -tbr
+               8000000 -fps 50 (VBR, default lookahead 17): IDR and per-P
+               seconds, the P pictures that carry intra CUs, the
+               wavefront steps they ran (at least one) and its seconds,
+               the host's wait in the any_intra read, QP per picture,
+               kbit/s against the target, K1 / K2 launches per P picture
+               (all > 0), PSNR-Y, decode == recon; lookahead_stats card
+               == CPU on the clip's batch and its time at batches of 9
+               and 37 frames
+  7. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
                the CPU: streams byte-identical, equal to the reference
                sha256, decoded by the port's decoder to the recon
-  7. small_ra  512x256 x 9 frames, M7, qp 32, random access (hierarchical
+  8. small_ra  512x256 x 9 frames, M7, qp 32, random access (hierarchical
                B, hl=2), on the card and on the CPU: streams
                byte-identical, equal to the reference sha256, decoded by
                the port's decoder to the recon
-  8. variants  the other configurations the port accepts (presets M6,
+  9. small_new 512x256 clips of M8-M9, 10-bit and VBR the same way
+               (card == CPU == reference sha256, decode == recon): M8
+               IPPP x10 and M9 RA hl=2 x9 (new ramps on the odd pictures;
+               intra CUs in P and in B pictures asserted), 10-bit M7 IPPP
+               x10, VBR with lookahead 8 x10
+ 10. variants  the other configurations the port accepts (presets M6,
                M10, M11; hierarchical low-delay P; low-delay B; random
                access hl=1; open GOP with a CRA and RASL pictures),
                512x256 x 5 frames each (x 9 for the open GOP): card
                stream == CPU stream, decoded to the recon
-  9. cpu_1080p the main phase's I + P access units equal to a CPU encode
+ 11. stream_variants
+               further paths, 512x256, card == CPU, decode == recon:
+               10-bit RA hl=2, 10-bit M8 low-delay B, VBR with
+               hierarchical low-delay P, a checkpoint split on the card
+               == the continuous encode, a CPU-made checkpoint restored
+               on the card, EncoderHandle streaming == batch, speed
+               control (the dynamic preset rising to M11)
+ 12. cpu_1080p the main phase's I + P access units equal to a CPU encode
                of the first two frames; the ra phase's I0, P4 and B2
                access units equal to the first three of a CPU encode of
-               the same frames
+               the same frames; the cli_1080p stream's I + P access units
+               equal to the first two of a CPU encode of its 8 frames
+               (the lookahead sees the same frames)
 The line before the last is the kernel JSON, the last line the device
 JSON. Imports nothing of JAX.
+
+    python3 chip_smoke.py --cli-probe OUT.json -- <app tokens>
+
+runs the command line's main with those tokens and writes, per access
+unit, its seconds, kernel launches, intra wavefront runs, steps and
+seconds and the any_intra wait to OUT.json (what phase cli_1080p starts
+in a subprocess).
 """
 
 from __future__ import annotations
@@ -69,14 +104,43 @@ SMALL_RA_SHA256 = \
     "a58e32f64015bc5da7dd08107a31be473bbc524109a254139beca681ef491a98"
 SMALL_RA_BYTES = 18639
 
+# The JAX reference package's streams of the M8-M9, 10-bit and VBR small
+# clips (512x256, qp 32, intra_period=-1, fps_num=50), computed on the CPU:
+# (config, frames, make_frames arguments beyond seed=11, sha256, bytes)
+SMALL_NEW = {
+    "small_m8": (dict(enc_mode=8), 10, dict(patches=True),
+                 "467a9bec7fcf7ff4b2498119556ad06c"
+                 "276adf0eb531b7030599445f9564beac", 28245),
+    "small_m9_ra": (dict(enc_mode=9, pred_structure=2,
+                         hierarchical_levels=2), 9, dict(patches=True),
+                    "c07c89c6806b1ec27bbcab88873099d3"
+                    "2f1340e259dc144c0f6ac96a739c5417", 22018),
+    "small_10bit": (dict(bit_depth=10), 10, dict(bit_depth=10),
+                    "7148f1d9b445139bc512b1403dada2b9"
+                    "1a4a12f2cf0476af7b09d85520a85e0a", 32290),
+    "small_vbr": (dict(rate_control_mode=1, target_bitrate=600_000,
+                       look_ahead_distance=8), 10, {},
+                  "a82e9c195a06741901f99434196bfe3d"
+                  "6eb1cbc46a334c9684b930b750323b9e", 15400),
+}
+
+# phase cli_1080p: the command line's tokens (beyond -i / -b / -o) and
+# its clip, 8 frames of make_frames(seed=7, patches=True, bit_depth=10)
+CLI_FRAMES = 8
+CLI_TBR = 8_000_000
+CLI_TOKENS = ["-w", "1920", "-h", "1080", "-bit-depth", "10", "-encMode",
+              "8", "-intra-period", "-1", "-rc", "1", "-tbr", str(CLI_TBR),
+              "-fps", "50"]
+
 # launches per device-time sample (CUDA events around a run of many
 # launches)
 R_LAUNCHES = 200
 
 # worker processes (and torch threads in each) for the CPU reference
 # encodes: most of a CPU encode is the IDR's sequential wavefront of small
-# steps, which more threads do not speed up
-CPU_WORKERS = 4
+# steps, which more threads do not speed up; three workers take the
+# three 1080p references, the others the small clips
+CPU_WORKERS = 5
 CPU_THREADS = 2
 
 RA_KW = dict(pred_structure=2, hierarchical_levels=2)
@@ -88,6 +152,26 @@ VARIANTS = ((dict(enc_mode=6), 5), (dict(enc_mode=10), 5),
             # a CRA at POC 8 with the RASL pictures 6, 5 and 7
             (dict(pred_structure=2, hierarchical_levels=2,
                   intra_refresh_type=1, intra_period=7), 9))
+# phase stream_variants, 512x256 of make_frames(seed=11, **frame
+# arguments): (name, config, frames, frame arguments, mode); mode plain: card
+# stream == CPU stream; split: checkpoint after 3 pictures on the card,
+# restored into a fresh card encoder; ckpt_cpu: the CPU encodes 3 pictures
+# and checkpoints, the card restores and encodes the rest; handle:
+# EncoderHandle on the card; speed: speed control toward 1e9 fps on both
+STREAM_VARIANTS = (
+    ("10-bit RA hl=2", dict(bit_depth=10, **RA_KW), 5, dict(bit_depth=10),
+     "plain"),
+    ("10-bit M8 LDB", dict(bit_depth=10, enc_mode=8, pred_structure=1), 5,
+     dict(bit_depth=10, patches=True), "plain"),
+    ("VBR hier LD-P", dict(rate_control_mode=1, target_bitrate=600_000,
+                           hierarchical_levels=2), 5, {}, "plain"),
+    ("checkpoint split", dict(enc_mode=8), 6, dict(patches=True), "split"),
+    ("CPU checkpoint on the card",
+     dict(enc_mode=8, rate_control_mode=1, target_bitrate=600_000,
+          look_ahead_distance=0), 6, dict(patches=True), "ckpt_cpu"),
+    ("EncoderHandle", dict(enc_mode=8), 5, dict(patches=True), "handle"),
+    ("speed control", dict(enc_mode=7), 6, dict(patches=True), "speed"),
+)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and non-tensor fp32 rate;
 # int32 multiply-adds are counted at the fp32 rate (no lower bound is
@@ -100,9 +184,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_frames(n, w, h, seed=7):
+def make_frames(n, w, h, seed=7, patches=False, bit_depth=8):
     """Synthetic content: textured luma and chroma with a global pan and a
-    moving object (the repository benchmark's generator)."""
+    moving object (the repository benchmark's generator). patches: every
+    odd picture gets (w // 256) * (h // 256) new 64x64 smooth ramps of
+    seeded slope, direction and place, which no reference holds (intra
+    CUs at M8-M9; the even pictures show what a picture without them
+    costs). bit_depth 10: the samples times 4 plus seeded 2-bit noise, as
+    uint16."""
     from svt_hevc_tpu_torch.io.yuv import Frame
     rng = np.random.default_rng(seed)
     big = rng.integers(0, 256, (h + 128, w + 128)).astype(np.float32)
@@ -126,6 +215,24 @@ def make_frames(n, w, h, seed=7):
         cr = (255 - cbig[oy // 2:oy // 2 + h // 2,
                          ox // 2:ox // 2 + w // 2]).astype(np.uint8).copy()
         cb[sy // 2:sy // 2 + 48, sx // 2:sx // 2 + 48] = 80
+        if patches and i % 2 == 1:
+            prng = np.random.default_rng(seed * 1000 + i)
+            a = np.arange(64)
+            for _ in range(max(1, (w // 256) * (h // 256))):
+                py = int(prng.integers(0, h - 64))
+                px = int(prng.integers(0, w - 64))
+                sy_, sx_ = prng.integers(1, 3, 2)
+                ramp = np.clip(30 + np.add.outer(sy_ * a, sx_ * a), 0, 255)
+                if prng.integers(0, 2):
+                    ramp = ramp[::-1]
+                if prng.integers(0, 2):
+                    ramp = ramp[:, ::-1]
+                y[py:py + 64, px:px + 64] = ramp
+        if bit_depth == 10:
+            nrng = np.random.default_rng(seed * 1000 + 500 + i)
+            y, cb, cr = (p.astype(np.uint16) * 4
+                         + nrng.integers(0, 4, p.shape).astype(np.uint16)
+                         for p in (y, cb, cr))
         frames.append(Frame(y=y, cb=cb, cr=cr))
     return frames
 
@@ -338,6 +445,29 @@ def phase_kernels(results: dict):
         k1["ops"] += ops
         k1["bytes"] += nbytes
 
+    # ---- K1 at 10-bit: the same levels of the two frames at 10-bit
+    # (samples times 4 plus 3); float32 sums stay exact (64*64*1023 <
+    # 2^24)
+    planes10 = [tuple((p << 2) + 3 for p in fr) for fr in planes]
+    k1_10 = {"device_ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "ops": 0.0,
+             "bytes": 0.0}
+    for name, src, ref, r in k1_levels(planes10):
+        out = K.sad_field(src, ref, 16, r)
+        want = K.sad_field_ref(src, ref, 16, r)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"K1 10-bit {name} differs from plain")
+        max_err["sad_field"] = max(max_err["sad_field"],
+                                   float((out - want).abs().max()))
+        nbytes, ops = k1_work(src, r)
+        t = time_kernel(lambda a=(src, ref, 16, r): K.sad_field(*a),
+                        lambda a=(src, ref, 16, r): K.sad_field_ref(*a),
+                        nbytes, ops)
+        log(f"  K1 sad_field 10-bit {name} r={r}: equal, {_fmt(t)}")
+        for key in ("device_ms", "call_ms", "plain_ms"):
+            k1_10[key] += t[key]
+        k1_10["ops"] += ops
+        k1_10["bytes"] += nbytes
+
     # ---- K2 on one field: luma / chroma, rounded both ways, 8- and
     # 10-bit, MVs at and beyond the clamp (the wrapper path with its
     # clamp against the plain direct forms)
@@ -382,7 +512,7 @@ def phase_kernels(results: dict):
     # pass), rounded both ways, 8- and 10-bit
     mv10 = torch.from_numpy(k2_fields(10, nby, nbx, seed=6)).to(dev)
     mv10c = mv10.clamp(-lim, lim)
-    k2 = None
+    k2, k2_10 = None, None
     for bd in (8, 10):
         ext_y, ext_c2 = exts[bd]
         for rounded in (False, True):
@@ -399,17 +529,20 @@ def phase_kernels(results: dict):
                       f"differs")
                 max_err["mc_block"] = max(
                     max_err["mc_block"], float((out - want).abs().max()))
-                if bd != 8 or not rounded:
+                if not rounded or (bd == 10 and comp != "luma"):
                     continue
                 nbytes, ops = k2_work(ext, args[1:5], *args[5:7])
                 t = time_kernel(lambda a=args: K.mc_block(*a),
                                 lambda a=args: K.mc_block_ref(*a),
                                 nbytes, ops, plain_reps=2)
                 shape = "x".join(map(str, out.shape))
-                log(f"  K2 mc_block batched {comp} bd=8 rounded -> "
+                log(f"  K2 mc_block batched {comp} bd={bd} rounded -> "
                     f"{shape}: equal, {_fmt(t)}")
                 if comp == "luma":
-                    k2 = t
+                    if bd == 8:
+                        k2 = t
+                    else:
+                        k2_10 = t
     # random fields share no window between neighbouring blocks; a field
     # of one MV per 32x32 CU (as the decided fields mostly are) does
     mv32 = mv10c[:, ::4, ::4].repeat_interleave(4, 1).repeat_interleave(
@@ -438,25 +571,41 @@ def phase_kernels(results: dict):
     log(f"  K2 mc_block B-shaped luma bd=8 14-bit K=7 (merge_snap_b) -> "
         f"{'x'.join(map(str, out.shape))}: equal, {_fmt(k2b)}")
     b1, by1 = bound(k1["bytes"], k1["ops"])
+    b10, by10 = bound(k1_10["bytes"], k1_10["ops"])
     results["sad_field"] = {
         "device_ms": k1["device_ms"], "call_ms": k1["call_ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": b1, "bound_by": by1,
-        "max_abs_err": max_err["sad_field"]}
+        "max_abs_err": max_err["sad_field"],
+        "bd10": {"device_ms": k1_10["device_ms"],
+                 "call_ms": k1_10["call_ms"],
+                 "plain_ms": k1_10["plain_ms"], "bound_ms": b10,
+                 "bound_by": by10}}
     results["mc_block"] = dict(k2, max_abs_err=max_err["mc_block"],
-                               b_launch=k2b)
-    log(f"phase kernels: K1 x3 levels, K2 x8 one-field, x8 batched and "
-        f"the B-shaped variant equal to plain; device_ms over "
+                               b_launch=k2b, bd10=k2_10)
+    log(f"phase kernels: K1 x3 levels at 8 and 10 bits, K2 x8 one-field, "
+        f"x8 batched and the B-shaped variant equal to plain; device_ms "
+        f"over "
         f"{R_LAUNCHES} launches "
         f"({time.perf_counter() - t0:.3f} s)")
 
 
+def _cfg(w, h, **kw):
+    """The small clips' config: qp 32, M7, intra_period=-1, 50 fps unless
+    kw says otherwise."""
+    from svt_hevc_tpu_torch import EncoderConfig
+    return EncoderConfig(**dict(dict(width=w, height=h, qp=32, enc_mode=7,
+                                     intra_period=-1, fps_num=50), **kw))
+
+
 def _encode(frames, w, h, device, n_aus=None, **kw):
-    """Encode frames (qp 32, M7, intra_period=-1 unless kw says otherwise);
-    with n_aus, take only the stream's first n_aus access units from the
-    generator and stop. Returns (parameter-set headers, access units)."""
-    from svt_hevc_tpu_torch import Encoder, EncoderConfig
-    cfg = EncoderConfig(**dict(dict(width=w, height=h, qp=32, enc_mode=7,
-                                    intra_period=-1), **kw))
+    """Encode frames (_cfg's config); with n_aus, take only the stream's
+    first n_aus access units from the generator and stop. Returns
+    (parameter-set headers, access units)."""
+    return _encode_cfg(_cfg(w, h, **kw), frames, device, n_aus)
+
+
+def _encode_cfg(cfg, frames, device, n_aus=None):
+    from svt_hevc_tpu_torch import Encoder
     enc = Encoder(cfg, device=device)
     gen = enc.encode_pictures(frames)
     aus = []
@@ -469,27 +618,62 @@ def _encode(frames, w, h, device, n_aus=None, **kw):
 
 
 def cpu_reference(job):
-    """One CPU reference encode, run in a worker process. job = (frames,
-    width, height, make_frames seed, config, n_aus). Returns (headers,
-    access-unit bytes, seconds)."""
+    """One CPU reference encode, run in a worker process. job = dict:
+    frames (n, width, height, make_frames seed, make_frames arguments),
+    kw (the config), n_aus, mode (plain; speed: speed control toward 1e9
+    fps; ckpt_cpu: also the first 3 pictures' access units and the
+    pickled checkpoint after them; cli: the config the command line's
+    tokens select). Returns (headers, access-unit bytes, seconds, extra)."""
+    import pickle
+
     import torch
+    from svt_hevc_tpu_torch import Encoder, EncoderConfig
     torch.set_num_threads(CPU_THREADS)
-    n, w, h, seed, kw, n_aus = job
+    n, w, h, seed, fkw = job["frames"]
     t0 = time.perf_counter()
-    hdr, aus = _encode(make_frames(n, w, h, seed=seed), w, h, "cpu",
-                       n_aus=n_aus, **kw)
-    return hdr, [a.data for a in aus], time.perf_counter() - t0
+    frames = make_frames(n, w, h, seed=seed, **fkw)
+    mode = job.get("mode", "plain")
+    extra = None
+    if mode == "cli":
+        from svt_hevc_tpu_torch import app
+        cfg = app.config_from_args(app.build_parser().parse_args(
+            ["-i", "-", "-b", "-", *CLI_TOKENS]), w, h)
+        hdr, aus = _encode_cfg(cfg, frames, "cpu", n_aus=job["n_aus"])
+    elif mode == "speed":
+        enc = Encoder(_cfg(w, h, **job["kw"]), device="cpu")
+        enc.set_speed_control(1e9)
+        hdr, aus = enc.headers(), list(enc.encode_pictures(frames))
+        extra = enc._dyn_enc_mode
+    else:
+        hdr, aus = _encode(frames, w, h, "cpu", n_aus=job.get("n_aus"),
+                           **job["kw"])
+        if mode == "ckpt_cpu":
+            enc = Encoder(_cfg(w, h, **job["kw"]), device="cpu")
+            head = [a.data for a in enc.encode_pictures(frames[:3])]
+            extra = (head, pickle.dumps(enc.checkpoint()))
+    return hdr, [a.data for a in aus], time.perf_counter() - t0, extra
 
 
 def cpu_jobs() -> dict:
     """Every check's CPU reference, longest first (the order the workers
     take them in)."""
-    jobs = {"ra": (9, 1920, 1080, 7, dict(RA_KW, fps_num=50), 3),
-            "main": (2, 1920, 1080, 7, dict(fps_num=50), None),
-            "small": (10, 512, 256, 11, {}, None),
-            "small_ra": (9, 512, 256, 11, RA_KW, None)}
+    def job(n, w, h, seed, kw, n_aus=None, fkw=None, mode="plain"):
+        return {"frames": (n, w, h, seed, fkw or {}), "kw": kw,
+                "n_aus": n_aus, "mode": mode}
+
+    jobs = {"ra": job(9, 1920, 1080, 7, dict(RA_KW, fps_num=50), 3),
+            "cli": job(CLI_FRAMES, 1920, 1080, 7, {}, 2,
+                       dict(patches=True, bit_depth=10), "cli"),
+            "main": job(2, 1920, 1080, 7, dict(fps_num=50)),
+            "small": job(10, 512, 256, 11, {}),
+            "small_ra": job(9, 512, 256, 11, RA_KW)}
+    for name, (kw, n, fkw, _, _) in SMALL_NEW.items():
+        jobs[name] = job(n, 512, 256, 11, kw, fkw=fkw)
     for i, (kw, n) in sorted(enumerate(VARIANTS), key=lambda e: -e[1][1]):
-        jobs[f"variant{i}"] = (n, 512, 256, 11, kw, None)
+        jobs[f"variant{i}"] = job(n, 512, 256, 11, kw)
+    for i, (_, kw, n, fkw, mode) in enumerate(STREAM_VARIANTS):
+        jobs[f"stream_variant{i}"] = job(n, 512, 256, 11, kw, fkw=fkw,
+                                    mode=mode)
     return jobs
 
 
@@ -506,14 +690,14 @@ def _decodes_to_recon(stream: bytes, aus, what: str) -> None:
               f"{what}: decoded != recon")
 
 
-def _psnr(recons, frames) -> float:
+def _psnr(recons, frames, peak: float = 255.0) -> float:
     se = 0.0
     npx = 0
     for rec, fr in zip(recons, frames):
         d = np.asarray(rec.y, np.float64) - fr.y.astype(np.float64)
         se += float((d * d).sum())
         npx += d.size
-    return 10 * np.log10(255.0 ** 2 * npx / max(se, 1e-9))
+    return 10 * np.log10(peak ** 2 * npx / max(se, 1e-9))
 
 
 def phase_small(cpu):
@@ -522,7 +706,7 @@ def phase_small(cpu):
     hdr, aus = _encode(frames, 512, 256, "cuda")
     s_gpu = hdr + b"".join(a.data for a in aus)
     t1 = time.perf_counter()
-    hdr_c, aus_c, t_cpu = cpu.result()
+    hdr_c, aus_c, t_cpu, _ = cpu.result()
     check(s_gpu == hdr_c + b"".join(aus_c),
           "small clip: card stream != CPU stream")
     sha = hashlib.sha256(s_gpu).hexdigest()
@@ -542,7 +726,7 @@ def phase_small_ra(cpu):
     hdr, aus = _encode(frames, 512, 256, "cuda", **RA_KW)
     s_gpu = hdr + b"".join(a.data for a in aus)
     t1 = time.perf_counter()
-    hdr_c, aus_c, t_cpu = cpu.result()
+    hdr_c, aus_c, t_cpu, _ = cpu.result()
     check(s_gpu == hdr_c + b"".join(aus_c),
           "small RA clip: card stream != CPU stream")
     sha = hashlib.sha256(s_gpu).hexdigest()
@@ -566,7 +750,7 @@ def phase_variants(cpus):
         name = ",".join(f"{k}={v}" for k, v in kw.items())
         hdr, aus = _encode(frames[:n], 512, 256, "cuda", **kw)
         s_gpu = hdr + b"".join(a.data for a in aus)
-        hdr_c, aus_c, _ = cpu.result()
+        hdr_c, aus_c, _, _ = cpu.result()
         check(s_gpu == hdr_c + b"".join(aus_c),
               f"variant {name}: card stream != CPU stream")
         _decodes_to_recon(s_gpu, aus, f"variant {name}")
@@ -691,24 +875,343 @@ def phase_ra(results: dict):
     return aus
 
 
-def phase_cpu_1080p(main_aus, ra_aus, cpu_main, cpu_ra):
-    """The 1080p access units of phases main and ra against CPU encodes:
-    I + P of the first two frames, and the first three access units (I0,
-    P4, B2) of the random-access stream, which the generator yields
-    without encoding the rest."""
+
+class _FixupTimer:
+    """gpu.encode.STAGE_TIMER of the command-line probe: the wall seconds
+    the host waits in the intra fixup's any_intra read (no synchronize
+    around it: the wait is the device work still queued) and the
+    seconds of the fixup's wavefront (synchronized before and after);
+    every other stage runs as without the hook."""
+
+    def __init__(self):
+        self.wait = 0.0
+        self.wavefront = 0.0
+
+    def stage(self, name: str):
+        import contextlib
+
+        import torch
+        kind = name.split(".", 1)[1]
+
+        @contextlib.contextmanager
+        def timed():
+            if kind == "intra_wavefront_pass":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            if kind == "intra_wavefront_pass":
+                torch.cuda.synchronize()
+                self.wavefront += time.perf_counter() - t0
+            elif kind == "any_intra":
+                self.wait += time.perf_counter() - t0
+        return timed()
+
+
+def _counts():
+    from svt_hevc_tpu_torch.gpu import intra_pass
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    return ([k.launches for k in K.KERNELS]
+            + [intra_pass.WAVEFRONT["runs"], intra_pass.WAVEFRONT["steps"]])
+
+
+def cli_probe(out_path: str, tokens) -> int:
+    """The command line's main (what python -m svt_hevc_tpu_torch.app
+    runs) with a probe around Encoder.encode_pictures: per access unit
+    in decode order, the seconds since the previous one (the first: since
+    the call, so it holds the first lookahead batch), the kernel launches
+    and the intra wavefront runs and steps in between, and the intra
+    fixup's seconds (_FixupTimer). VBR pictures are not pipelined, so
+    each span is that picture's. Counts start at 0 when the encode
+    starts."""
+    import torch
+    from svt_hevc_tpu_torch import app
+    from svt_hevc_tpu_torch.gpu import encode as genc
+    from svt_hevc_tpu_torch.gpu import intra_pass
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    from svt_hevc_tpu_torch.pipeline.encoder import Encoder
+
+    rows = []
+    encode_pictures = Encoder.encode_pictures
+    timer = genc.STAGE_TIMER = _FixupTimer()
+
+    def probed(self, frames, **kw):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        intra_pass.WAVEFRONT.update(runs=0, steps=0)
+        t_prev, c_prev = time.perf_counter(), _counts()
+        f_prev = (timer.wait, timer.wavefront)
+        for au in encode_pictures(self, frames, **kw):
+            t_now, c_now = time.perf_counter(), _counts()
+            rows.append({"poc": au.poc, "slice_type": au.slice_type,
+                         "seconds": t_now - t_prev,
+                         "counts": [b - a for a, b in zip(c_prev, c_now)],
+                         "any_intra_wait": timer.wait - f_prev[0],
+                         "wavefront_s": timer.wavefront - f_prev[1]})
+            t_prev, c_prev = t_now, c_now
+            f_prev = (timer.wait, timer.wavefront)
+            yield au
+
+    Encoder.encode_pictures = probed
+    rc = app.main(list(tokens))
+    with open(out_path, "w") as f:
+        json.dump(rows, f)
+    return rc
+
+
+def _slice_qps(stream: bytes) -> list[int]:
+    """slice_qp of every slice, in stream order."""
+    from svt_hevc_tpu_torch.bitstream.bitwriter import ebsp_to_rbsp
+    from svt_hevc_tpu_torch.bitstream.headers import (parse_pps,
+                                                      parse_slice_header,
+                                                      parse_sps)
+    from svt_hevc_tpu_torch.bitstream.nal import split_annexb
+    sps = pps = None
+    qps = []
+    for t, e in split_annexb(stream):
+        rbsp = ebsp_to_rbsp(e)
+        if t == 33:
+            sps = parse_sps(rbsp)
+        elif t == 34:
+            pps = parse_pps(rbsp)
+        elif t < 32:
+            qps.append(parse_slice_header(rbsp, int(t), sps, pps).slice_qp)
+    return qps
+
+
+def _time_lookahead(ys) -> float:
+    """Seconds of one lookahead_stats call on the card (median of 3,
+    synchronized)."""
+    import torch
+    from svt_hevc_tpu_torch.gpu.analysis import lookahead_stats
+    lookahead_stats(ys)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lookahead_stats(ys)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def phase_cli_1080p(results: dict):
+    import torch
+    from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+    from svt_hevc_tpu_torch.gpu.analysis import lookahead_stats
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    from svt_hevc_tpu_torch.io.yuv import read_yuv, write_yuv420
+
+    t_phase = time.perf_counter()
+    n = CLI_FRAMES
+    frames = make_frames(n, 1920, 1080, seed=7, patches=True, bit_depth=10)
+    d = os.path.join(HERE, "build", "cli_1080p")
+    os.makedirs(d, exist_ok=True)
+    path = {k: os.path.join(d, k)
+            for k in ("in.yuv", "out.265", "rec.yuv", "probe.json")}
+    write_yuv420(path["in.yuv"], frames)
+    tokens = ["-i", path["in.yuv"], "-b", path["out.265"], "-o",
+              path["rec.yuv"], *CLI_TOKENS]
     t0 = time.perf_counter()
-    _, aus_c, t_main = cpu_main.result()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--cli-probe", path["probe.json"], "--", *tokens],
+                       capture_output=True, text=True, timeout=900,
+                       cwd=HERE)
+    t_cli = time.perf_counter() - t0
+    check(r.returncode == 0, f"the command line failed: {r.stderr[-3000:]}")
+    with open(path["probe.json"]) as f:
+        rows = json.load(f)
+    with open(path["out.265"], "rb") as f:
+        stream = f.read()
+    recons = list(read_yuv(path["rec.yuv"], 1920, 1080, bit_depth=10))
+    check(len(rows) == n and len(recons) == n,
+          f"cli_1080p: {len(rows)} access units, {len(recons)} recons")
+    dec = decode_stream(stream)
+    check(len(dec) == n, "cli_1080p: decoded picture count")
+    for dd, rr in zip(dec, recons):
+        check(np.array_equal(dd.y, rr.y) and np.array_equal(dd.cb, rr.cb)
+              and np.array_equal(dd.cr, rr.cr),
+              "cli_1080p: decoded != recon")
+    names = [k.name for k in K.KERNELS]
+    nk = len(names)
+    p_rows = [row for row in rows if row["slice_type"] == 1]
+    check(len(p_rows) == n - 1 and rows[0]["slice_type"] == 2,
+          "cli_1080p: not one IDR and 7 P pictures")
+    for row in p_rows:
+        check(all(c > 0 for c in row["counts"][:nk]),
+              f"cli_1080p P{row['poc']}: launches {row['counts'][:nk]}")
+    intra_p = [(row["poc"], row["counts"][nk + 1]) for row in p_rows
+               if row["counts"][nk] > 0]
+    check(len(intra_p) >= 1, "cli_1080p: no P picture with intra CUs")
+    for k, name in enumerate(names):
+        results[name]["launches_cli"] = sum(row["counts"][k]
+                                            for row in rows)
+        results[name]["launches_per_p_picture_m8"] = [
+            row["counts"][k] for row in p_rows]
+    qps = _slice_qps(stream)
+    kbps = 8 * len(stream) * 50 / n / 1000.0
+    psnr = _psnr(recons, frames, peak=1023.0)
+    log(f"  {r.stdout.strip().splitlines()[-1]}")
+    log(f"  1080p 10-bit M8 VBR via the command line ({t_cli:.3f} s in the "
+        f"subprocess): IDR {rows[0]['seconds']:.3f} s (with the first "
+        f"lookahead batch), P "
+        + ", ".join(f"{row['seconds']:.3f}" for row in p_rows)
+        + f" s; P pictures with intra CUs (POC, wavefront steps) {intra_p}")
+    log("  P pictures: wavefront s "
+        + ", ".join(f"{row['wavefront_s']:.3f}" for row in p_rows)
+        + "; the rest of the picture s "
+        + ", ".join(f"{row['seconds'] - row['wavefront_s']:.3f}"
+                    for row in p_rows)
+        + "; host wait in the any_intra read ms "
+        + ", ".join(f"{row['any_intra_wait'] * 1e3:.1f}" for row in p_rows))
+    log(f"  QP per picture {qps}; {kbps:.1f} kbit/s against -tbr "
+        f"{CLI_TBR / 1000:.1f} ({kbps * 1000 / CLI_TBR:.3f} of target); "
+        f"PSNR-Y {psnr:.3f} dB; {len(stream)} bytes")
+    log("  launches per P picture: " + ", ".join(
+        f"{name} {[row['counts'][k] for row in p_rows]}"
+        for k, name in enumerate(names)))
+    # the lookahead's statistics: card == CPU on this clip's batch, and
+    # the card's time at 9 and 37 frames (batches of lookahead 3 and 17)
+    ys = torch.from_numpy(np.stack([frames[0].y] + [f.y for f in frames])
+                          .astype(np.int32))
+    got = lookahead_stats(ys.cuda())
+    want = lookahead_stats(ys)
+    for key in ("zz_sad", "gm_sad", "gm_mv", "hist"):
+        check(torch.equal(got[key].cpu(), want[key]),
+              f"lookahead_stats {key}: card != CPU")
+    rel = float(((got["variance"].cpu() - want["variance"]).abs()
+                 / want["variance"]).max())
+    check(rel <= 1e-6, f"lookahead_stats variance: card/CPU rel {rel}")
+    big = ys.cuda().repeat(5, 1, 1)[:37]
+    t9, t37 = _time_lookahead(ys.cuda()), _time_lookahead(big)
+    results["lookahead_stats"] = {"s_9": t9, "s_37": t37}
+    log(f"  lookahead_stats card == CPU (variance rel {rel:.2e}); card "
+        f"{t9 * 1e3:.3f} ms per batch of 9 frames, {t37 * 1e3:.3f} ms per "
+        f"batch of 37")
+    log(f"phase cli_1080p: 1920x1080 x{n} 10-bit M8 VBR through the command "
+        f"line on the card ({time.perf_counter() - t_phase:.3f} s)")
+    return stream
+
+
+def _encode_counting_wavefront(name, frames, kw):
+    """Card encode of one small slice clip, with the intra wavefront runs
+    it made."""
+    from svt_hevc_tpu_torch.gpu import intra_pass
+    runs = intra_pass.WAVEFRONT["runs"]
+    hdr, aus = _encode(frames, 512, 256, "cuda", **kw)
+    return hdr, aus, intra_pass.WAVEFRONT["runs"] - runs
+
+
+def phase_small_new(cpus):
+    t0 = time.perf_counter()
+    parts = []
+    for name, (kw, n, fkw, sha_want, nbytes) in SMALL_NEW.items():
+        frames = make_frames(n, 512, 256, seed=11, **fkw)
+        hdr, aus, runs = _encode_counting_wavefront(name, frames, kw)
+        s_gpu = hdr + b"".join(a.data for a in aus)
+        hdr_c, aus_c, t_cpu, _ = cpus[name].result()
+        check(s_gpu == hdr_c + b"".join(aus_c),
+              f"{name}: card stream != CPU stream")
+        sha = hashlib.sha256(s_gpu).hexdigest()
+        check(sha == sha_want and len(s_gpu) == nbytes,
+              f"{name}: sha256 {sha} / {len(s_gpu)} bytes != reference")
+        _decodes_to_recon(s_gpu, aus, name)
+        n_intra = sum(a.slice_type == 2 for a in aus)
+        if name in ("small_m8", "small_m9_ra"):
+            check(runs > n_intra,
+                  f"{name}: no inter picture ran the intra wavefront")
+        recons = [a.recon for a in sorted(aus, key=lambda a: a.display_idx)]
+        psnr = _psnr(recons, frames,
+                     peak=1023.0 if kw.get("bit_depth") == 10 else 255.0)
+        parts.append(f"{name} x{n} {len(s_gpu)} bytes, {runs - n_intra} "
+                     f"inter pictures with intra CUs, PSNR-Y {psnr:.3f} "
+                     f"dB, CPU {t_cpu:.1f} s")
+    log(f"phase small_new: 512x256, sha256 match, card == CPU, decode == "
+        f"recon: {'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
+
+
+def phase_stream_variants(cpus):
+    import pickle
+
+    from svt_hevc_tpu_torch import Encoder, EncoderHandle
+    t0 = time.perf_counter()
+    parts = []
+    for (name, kw, n, fkw, mode), cpu in zip(STREAM_VARIANTS, cpus):
+        frames = make_frames(n, 512, 256, seed=11, **fkw)
+        hdr_c, aus_c, _, extra = cpu.result()
+        s_cpu = hdr_c + b"".join(aus_c)
+        cfg = _cfg(512, 256, **kw)
+        aus = None
+        if mode == "plain":
+            hdr, aus = _encode(frames, 512, 256, "cuda", **kw)
+            s_gpu = hdr + b"".join(a.data for a in aus)
+        elif mode == "split":
+            e1 = Encoder(cfg)
+            head = [a.data for a in e1.encode_pictures(frames[:3])]
+            e2 = Encoder(cfg)
+            e2.restore(pickle.loads(pickle.dumps(e1.checkpoint())))
+            aus = list(e2.encode_pictures(frames[3:]))
+            s_gpu = e2.headers() + b"".join(head + [a.data for a in aus])
+            aus = None
+        elif mode == "ckpt_cpu":
+            head, blob = extra
+            e2 = Encoder(cfg)
+            e2.restore(pickle.loads(blob))
+            tail = [a.data for a in e2.encode_pictures(frames[3:])]
+            s_gpu = e2.headers() + b"".join(head + tail)
+        elif mode == "handle":
+            h = EncoderHandle(cfg, return_recon=True)
+            for f in frames:
+                h.send_picture(f)
+            h.send_eos()
+            pkts = list(h.packets())
+            h.close()
+            check([p.dts for p in pkts] == list(range(n)),
+                  f"variant {name}: packet order")
+            s_gpu = h.stream_header() + b"".join(p.data for p in pkts)
+        else:                                   # speed
+            enc = Encoder(cfg)
+            enc.set_speed_control(1e9)
+            aus = list(enc.encode_pictures(frames))
+            s_gpu = enc.headers() + b"".join(a.data for a in aus)
+            check(enc._dyn_enc_mode == extra == 11,
+                  f"variant {name}: dynamic preset {enc._dyn_enc_mode} / "
+                  f"CPU {extra}, not 11")
+        check(s_gpu == s_cpu, f"variant {name}: card stream != CPU stream")
+        from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+        check(len(decode_stream(s_gpu)) == n,
+              f"variant {name}: decoded picture count")
+        if aus is not None:
+            _decodes_to_recon(s_gpu, aus, f"variant {name}")
+        parts.append(f"{name} x{n} {len(s_gpu)} bytes")
+    log(f"phase stream_variants: 512x256, card == CPU, decodes: "
+        f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
+
+
+def phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu_main, cpu_ra,
+                    cpu_cli):
+    """The 1080p access units of phases main, ra and cli_1080p against
+    CPU encodes: I + P of the first two frames; the first three access
+    units (I0, P4, B2) of the random-access stream, which the generator
+    yields without encoding the rest; the first two of the command line's
+    10-bit M8 VBR stream (its lookahead batch holds all 8 frames on both
+    sides)."""
+    t0 = time.perf_counter()
+    _, aus_c, t_main, _ = cpu_main.result()
     for i in range(2):
         check(main_aus[i].data == aus_c[i],
               f"1080p AU {i}: card bytes != CPU bytes")
-    _, aus_c, t_ra = cpu_ra.result()
+    _, aus_c, t_ra, _ = cpu_ra.result()
     for i in range(3):
         check(ra_aus[i].data == aus_c[i],
               f"1080p RA AU {i} (POC {ra_aus[i].poc}): card bytes != CPU "
               f"bytes")
+    hdr_c, aus_c, t_cli, _ = cpu_cli.result()
+    check(cli_stream.startswith(hdr_c + aus_c[0] + aus_c[1]),
+          "1080p cli I + P access units: card bytes != CPU bytes")
     log(f"phase cpu_1080p: main I + P access units == CPU encode (CPU "
         f"{t_main:.3f} s in a worker), ra I0 + P4 + B2 access units == CPU "
-        f"encode (CPU {t_ra:.3f} s in a worker) "
+        f"encode (CPU {t_ra:.3f} s in a worker), cli_1080p I + P access "
+        f"units == CPU encode (CPU {t_cli:.3f} s in a worker) "
         f"({time.perf_counter() - t0:.3f} s)")
 
 
@@ -733,6 +1236,7 @@ def main() -> int:
     phase_kernels(results)
     main_aus = phase_main(results)
     ra_aus = phase_ra(results)
+    cli_stream = phase_cli_1080p(results)
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(
@@ -743,8 +1247,12 @@ def main() -> int:
                for name, job in cpu_jobs().items()}
         phase_small(cpu["small"])
         phase_small_ra(cpu["small_ra"])
+        phase_small_new(cpu)
         phase_variants([cpu[f"variant{i}"] for i in range(len(VARIANTS))])
-        phase_cpu_1080p(main_aus, ra_aus, cpu["main"], cpu["ra"])
+        phase_stream_variants([cpu[f"stream_variant{i}"]
+                               for i in range(len(STREAM_VARIANTS))])
+        phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu["main"],
+                        cpu["ra"], cpu["cli"])
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     src = {"sad_field": ("svt_hevc_tpu_torch/csrc/sad_field.cu",
@@ -761,10 +1269,13 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
                "launches_ra": r["launches_ra"],
-               "launches_per_b_picture": r["launches_per_b_picture"]}
+               "launches_per_b_picture": r["launches_per_b_picture"],
+               "launches_cli": r["launches_cli"],
+               "launches_per_p_picture_m8": r["launches_per_p_picture_m8"]}
+        keys = ("device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+        row["bd10"] = {k: r["bd10"][k] for k in keys}
         if "b_launch" in r:
-            row["b_launch"] = {k: r["b_launch"][k] for k in (
-                "device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+            row["b_launch"] = {k: r["b_launch"][k] for k in keys}
         rows.append(row)
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
@@ -775,4 +1286,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-probe"]:
+        sys.path.insert(0, HERE)
+        sys.exit(cli_probe(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

@@ -22,9 +22,11 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from .api import EncoderHandle, Packet  # noqa: E402
 from .config import EncoderConfig  # noqa: E402
 from .pipeline.encoder import Encoder  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["Encoder", "EncoderConfig", "__version__"]
+__all__ = ["Encoder", "EncoderConfig", "EncoderHandle", "Packet",
+           "__version__"]

@@ -106,3 +106,85 @@ def intra_search_size_pred(y: torch.Tensor, n: int, bit_depth: int = 8):
     plane = torch.round(plane).clamp(0, (1 << bit_depth) - 1).to(torch.int32)
     return (best.reshape(gh, gw).to(torch.int32),
             cost.amin(dim=1).reshape(gh, gw).to(torch.float32), plane)
+
+
+# ------------------------------------------------------------- lookahead
+
+_GM_R = 8       # global-motion search radius in 1/16-decimated pixels
+
+
+def _inv_f32(count: int, device) -> torch.Tensor:
+    """The float32 reciprocal of a count: XLA evaluates a float32 mean as
+    the sum times this constant, not as a division by the count."""
+    return torch.tensor(1.0 / count, dtype=torch.float32, device=device)
+
+
+def _mean_f32(units: torch.Tensor, scale: int, count: int) -> torch.Tensor:
+    """float32 mean of values given as exact int64 sums in 1/scale units:
+    the sum converted to float32 once, times the float32 reciprocal of
+    the count, which is what the JAX graph's float32 mean gives whenever
+    its own float32 sum is exact (below 2^24 units)."""
+    s = (units.to(torch.float64) / scale).to(torch.float32)
+    return s * _inv_f32(count, units.device)
+
+
+def lookahead_stats(ys: torch.Tensor) -> dict:
+    """Batched lookahead statistics for a run of consecutive lumas.
+
+    Port of svt_hevc_tpu.tpu.analysis.lookahead_stats. ys: (T, H, W)
+    integer lumas with H, W multiples of 4; frame 0 is the predecessor
+    of the window, and stats come back for frames 1..T-1: zz_sad (the
+    zero-MV SAD of the 4x4-mean decimated planes), gm_sad / gm_mv (the
+    best of the 289 displacements of a +-8 decimated-pel translation
+    search, first minimum in the JAX displacement order, gm_mv = [dx, dy]
+    full-pel), variance and 32-bin histograms.
+
+    Exactness: the decimated planes are integer 4x4 sums (1/16 units of
+    the JAX float32 means, which are exact), and every SAD is an exact
+    int64 sum converted to float32 once (_mean_f32), so the card and the
+    CPU agree at any size. The JAX graph sums in float32, so it agrees
+    bit for bit while a SAD's sum stays below 2^24 sixteenths (128x64 at
+    any content and bit depth; 1080p only while the mean decimated
+    difference stays below 8 samples); above that XLA's float32
+    accumulation rounds in an order of its own and this port keeps the
+    exact value. The variance's squared deviations are float32 as in
+    JAX, summed in float64 and rounded to float32 once (JAX: a float32
+    reduction), so it can differ from JAX in the last bits of float32."""
+    t, h, w = ys.shape
+    hd, wd = h // 4, w // 4
+    n_dec = hd * wd
+    yi = ys.to(torch.int32)
+    dec = yi.reshape(t, hd, 4, wd, 4).sum((2, 4), dtype=torch.int32)
+    zz_u = (dec[1:] - dec[:-1]).abs().sum((1, 2), dtype=torch.int64)
+    zz = _mean_f32(zz_u, 16, n_dec)
+
+    r = _GM_R
+    s2 = 2 * r + 1
+    prev = dec[:-1]
+    pad = torch.cat([prev[:, :1].expand(t - 1, r, wd), prev,
+                     prev[:, -1:].expand(t - 1, r, wd)], 1)
+    pad = torch.cat([pad[:, :, :1].expand(t - 1, hd + 2 * r, r), pad,
+                     pad[:, :, -1:].expand(t - 1, hd + 2 * r, r)], 2)
+    cur = dec[1:]
+    rows = []
+    for dy in range(s2):
+        band = pad[:, dy:dy + hd]
+        sh = torch.stack([band[:, :, dx:dx + wd] for dx in range(s2)])
+        rows.append((cur[None] - sh).abs().sum((2, 3), dtype=torch.int64))
+    sads = _mean_f32(torch.cat(rows), 16, n_dec)           # (289, T-1)
+    gm_sad = sads.min(0).values
+    idx = torch.arange(s2 * s2, device=ys.device)[:, None].expand_as(sads)
+    k = torch.where(sads == gm_sad[None], idx, s2 * s2).min(0).values
+    gm_mv = torch.stack([(k % s2 - r) * 4, (k // s2 - r) * 4],
+                        -1).to(torch.int32)
+
+    n_pix = h * w
+    mean = _mean_f32(yi.sum((1, 2), dtype=torch.int64), 1, n_pix)
+    dev = yi.to(torch.float32) - mean[:, None, None]
+    sq = (dev * dev).to(torch.float64)
+    var = sq.sum((1, 2)).to(torch.float32) * _inv_f32(n_pix, ys.device)
+    bins = torch.clamp(yi >> 3, 0, 31).to(torch.int64)
+    hist = torch.stack([torch.bincount(b.reshape(-1), minlength=32)
+                        for b in bins]).to(torch.int32)
+    return {"zz_sad": zz, "gm_sad": gm_sad, "gm_mv": gm_mv,
+            "variance": var[1:], "hist": hist[1:]}

@@ -759,9 +759,10 @@ def unpack(flat: np.ndarray, specs):
 
 
 def prep_planes(y, cb, cr, w64: int, h64: int, device):
-    """Upload-side prep: ship the raw-dtype planes (uint8 for 8-bit, so a
-    quarter of the int32 bytes), then edge-pad them to the 64-aligned
-    coded grid as int32 device tensors."""
+    """Upload-side prep: ship the planes (uint8 as they are, a quarter of
+    the int32 bytes; 10-bit uint16 planes converted to int32 on the host,
+    since torch's uint16 has few CUDA kernels), then edge-pad them to the
+    64-aligned coded grid as int32 device tensors."""
     def up(p, ww, hh):
         p = np.ascontiguousarray(p)
         if p.dtype != np.uint8:
@@ -1605,16 +1606,40 @@ def _fast_p_front(src_y, ref_y, hme_mv, qp: int, col16_mv, col16_valid,
     return cu_log2_8, inter8, mv8, mode8
 
 
+def _intra_fixup(src3, rec3, lv3, cu_log2_8, inter8, mode8, qp: int,
+                 qp_c: int, lam: float, ctb_log2: int, w: int, h: int,
+                 bit_depth: int, min_intra_log2: int, kind: str):
+    """Closed-loop intra encode of the intra CUs an inter picture's
+    decision chose (presets M8-M9): the JAX graphs' lax.cond over
+    any_intra, taken here with one host read of any_intra (a device
+    sync). Neighbour samples come from the inter CUs' reconstruction in
+    rec3. Returns (rec3, lv3, mode8), unchanged where no in-picture 8x8
+    block is intra."""
+    from .intra_pass import intra_wavefront_pass
+
+    nby, nbx = cu_log2_8.shape
+    dev = cu_log2_8.device
+    inpic = ((torch.arange(nbx, device=dev) * 8 < w)[None, :]
+             & (torch.arange(nby, device=dev) * 8 < h)[:, None])
+    with stage(f"{kind}.any_intra"):
+        any_intra = bool((~inter8 & inpic).any())
+    if not any_intra:
+        return rec3, lv3, mode8
+    with stage(f"{kind}.intra_wavefront_pass"):
+        out7 = intra_wavefront_pass(
+            *src3, *rec3, *lv3, cu_log2_8, mode8, ~inter8, qp, qp_c, w=w,
+            h=h, bit_depth=bit_depth, ctb_log2=ctb_log2,
+            min_cu_log2=min_intra_log2, lam=lam, refine_modes=True)
+    return out7[:3], out7[3:6], out7[6]
+
+
 def _fast_p_finish(src_y, src_cb, src_cr, ref_y, ref_cb, ref_cr,
                    cu_log2_8, inter8, mv8, mode8, qp: int, qp_c: int,
                    lam: float, ctb_log2: int, w: int, h: int,
                    bit_depth: int = 8, dlf: bool = True, sao: bool = True,
                    min_intra_log2: int = P_MIN_INTRA_LOG2):
-    """P-picture finish half: encode pass + DLF/SAO + pack. Only the
-    intra-free branch (min_intra_log2 >= 6) exists in this port."""
-    if min_intra_log2 < 6:
-        raise NotImplementedError(
-            "intra CUs in P pictures (presets M8-M9) are not ported yet")
+    """P-picture finish half: encode pass + intra fixup (where the
+    preset offers intra, min_intra_log2 <= 5) + DLF/SAO + pack."""
     tu_log2 = torch.clamp_max(cu_log2_8, 5)
     with stage("p.encode_pass_p_direct"):
         out = encode_pass_p_direct(
@@ -1625,6 +1650,10 @@ def _fast_p_finish(src_y, src_cb, src_cr, ref_y, ref_cb, ref_cr,
     tu8 = out["tu8"]
     rec3 = (out["rec_y"], out["rec_cb"], out["rec_cr"])
     lv3 = (out["lv_y"], out["lv_cb"], out["lv_cr"])
+    if min_intra_log2 < 6:
+        rec3, lv3, mode8 = _intra_fixup(
+            (src_y, src_cb, src_cr), rec3, lv3, cu_log2_8, inter8, mode8,
+            qp, qp_c, lam, ctb_log2, w, h, bit_depth, min_intra_log2, "p")
     with stage("p._finish_fused"):
         packed_fin, rec_y, rec_cb, rec_cr, lv_full = _finish_fused(
             (src_y, src_cb, src_cr), rec3, lv3, cu_log2_8, inter8, mv8, tu8,
@@ -1664,13 +1693,12 @@ def _fast_b_front(src_y, src_cb, src_cr, ref0_y, ref0_cb, ref0_cr,
                   min_intra_log2: int = P_MIN_INTRA_LOG2,
                   subpel_min: int = 16):
     """B-picture front half: dense MD per list, the two-list quadtree
-    decision, merge alignment passes and the B encode pass. Only the
-    intra-free branch (min_intra_log2 >= 6) exists in this port. Where
+    decision, merge alignment passes, the B encode pass and, where the
+    preset offers intra (min_intra_log2 <= 5), the intra fixup. Where
     both lists hold the same reference and HME field (low-delay B), the
     second list's dense MD is the first's."""
-    if min_intra_log2 < 6:
-        raise NotImplementedError(
-            "intra CUs in B pictures (presets M8-M9) are not ported yet")
+    from .analysis import intra_search_size
+
     with stage("b.dense_md_p"):
         md0 = dense_md_p(src_y, ref0_y, hme_mv0, bit_depth=bit_depth, qp=qp,
                          subpel_min=subpel_min)
@@ -1680,9 +1708,16 @@ def _fast_b_front(src_y, src_cb, src_cr, ref0_y, ref0_cb, ref0_cr,
         with stage("b.dense_md_p"):
             md1 = dense_md_p(src_y, ref1_y, hme_mv1, bit_depth=bit_depth,
                              qp=qp, subpel_min=subpel_min)
+    ois = {}
+    if min_intra_log2 <= 5:
+        yf = src_y.to(torch.float32)
+        for n in (16, 32):
+            mode, cost = intra_search_size(yf, n)
+            ois[n] = (mode.to(torch.int32),
+                      torch.round(cost).to(torch.int32))
     with stage("b.decide_tree_b_dev"):
         cu_log2_8, ref8_2l, mv8_2l, mode8 = decide_tree_b_dev(
-            md0, md1, {}, ctb_log2, src_y, ref0_y, ref1_y,
+            md0, md1, ois, ctb_log2, src_y, ref0_y, ref1_y,
             min_intra_log2=min_intra_log2, w=w, h=h, qp=qp,
             bit_depth=bit_depth)
     ext0 = _ext_y(ref0_y)
@@ -1701,6 +1736,11 @@ def _fast_b_front(src_y, src_cb, src_cr, ref0_y, ref0_cb, ref0_cr,
             tu_split=True, cu_log2_8=cu_log2_8)
     rec3 = (out["rec_y"], out["rec_cb"], out["rec_cr"])
     lv3 = (out["lv_y"], out["lv_cb"], out["lv_cr"])
+    if min_intra_log2 < 6:
+        rec3, lv3, mode8 = _intra_fixup(
+            (src_y, src_cb, src_cr), rec3, lv3, cu_log2_8,
+            (ref8_2l >= 0).any(0), mode8, qp, qp_c, lam, ctb_log2, w, h,
+            bit_depth, min_intra_log2, "b")
     return cu_log2_8, ref8_2l, mv8_2l, mode8, out["tu8"], rec3, lv3
 
 

@@ -24,6 +24,10 @@ import torch
 
 from ..core.intra import INTRA_PRED_ANGLE, INV_ANGLE, _filter_flag
 
+# Wavefront passes run and (diagonal, slot) steps they took, since the
+# caller last zeroed them: which pictures ran the closed-loop intra pass
+# and at what sequential depth.
+WAVEFRONT = {"runs": 0, "steps": 0}
 
 # --------------------------------------------------------------- mode tables
 
@@ -300,6 +304,8 @@ def intra_wavefront_pass(src_y, src_cb, src_cr, rec_y, rec_cb, rec_cr,
     nmax = sizes[-1]
     ncmax = nmax // 2
     nby, nbx = h64 // 8, w64 // 8
+    WAVEFRONT["runs"] += 1
+    WAVEFRONT["steps"] += D * slots
 
     src_y = src_y.to(torch.int32)
     src_c = torch.stack([src_cb.to(torch.int32), src_cr.to(torch.int32)])

@@ -1,19 +1,23 @@
 """Encoder pipeline on the card: frames -> Annex-B HEVC byte stream.
 
 Port of svt_hevc_tpu/pipeline/encoder.py for the slice this package
-covers: CQP; low-delay P (IPPP, and its hierarchical form), low-delay B,
-and random access (hierarchical B, closed GOP with IDR refresh or open
-GOP with CRA refresh and RASL pictures); one reference per list, 8-bit
-4:2:0, one tile, presets whose inter pictures carry no intra CUs (M6-M7,
-M10-M11). I pictures take gpu.encode.fast_i_fused_dev, P pictures
-gpu.me.hme_search then gpu.encode.fast_p_fused_dev, B pictures one
-hme_search per distinct reference then gpu.encode.fast_b_fused_dev; the
-host walk and the native emitter write the syntax. Reconstructions stay
-on the device as later pictures' references (the device DPB), each
-picture's decided motion stays on the device as a later P picture's TMVP
-source, and in low-delay structures a picture's download and host walk
-overlap the next picture's device work (one frame deep); random access
-pictures are encoded one at a time, as in the JAX package.
+covers: CQP, and VBR with or without lookahead; low-delay P (IPPP, and
+its hierarchical form), low-delay B, and random access (hierarchical B,
+closed GOP with IDR refresh or open GOP with CRA refresh and RASL
+pictures; CQP, as in the JAX package); one reference per list, 8-bit and
+10-bit 4:2:0, one tile, the fused presets M6-M11 (M8-M9 put intra CUs in
+inter pictures); speed control (a dynamic preset) and checkpoint /
+restore of the streaming state. I pictures take
+gpu.encode.fast_i_fused_dev, P pictures gpu.me.hme_search then
+gpu.encode.fast_p_fused_dev, B pictures one hme_search per distinct
+reference then gpu.encode.fast_b_fused_dev; the host walk and the native
+emitter write the syntax. Reconstructions stay on the device as later
+pictures' references (the device DPB), each picture's decided motion
+stays on the device as a later P picture's TMVP source, and in
+low-delay CQP structures a picture's download and host walk overlap the
+next picture's device work (one frame deep); random access pictures, and
+every picture under VBR or speed control, are encoded one at a time, as
+in the JAX package.
 
 A configuration outside the slice raises NotImplementedError; there is
 no host CTU path to fall back to.
@@ -21,6 +25,10 @@ no host CTU path to fall back to.
 
 from __future__ import annotations
 
+import copy
+import itertools
+import time
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -81,22 +89,19 @@ def slice_unsupported(cfg: EncoderConfig) -> str | None:
         (cfg.tile_columns * cfg.tile_rows != 1
          or cfg.constrained_motion_tiles,
          "tiles come with the multi-device slice"),
-        (cfg.chroma_format != 1, "4:2:2 / 4:4:4 are not ported"),
-        (cfg.bit_depth != 8,
-         "10-bit encodes come with the 10-bit full-path slice"),
-        (feat.rd_mode_decision or not feat.ois_intra,
-         f"preset M{cfg.enc_mode} uses the RD host path (M0-M5), not ported"),
-        (feat.p_min_intra_log2 < 6,
-         f"preset M{cfg.enc_mode} puts intra CUs in P pictures; that comes "
-         "with the intra-in-P slice (M8-M9)"),
-        (cfg.rate_control_mode != 0,
-         "rate control other than CQP comes with the API slice"),
+        (cfg.chroma_format != 1,
+         "4:2:2 / 4:4:4 come with the device-helpers slice (host path)"),
+        (feat.rd_mode_decision or not feat.ois_intra
+         or feat.p_min_intra_log2 < 5,
+         f"preset M{cfg.enc_mode} uses the RD host path (M0-M5), which "
+         "comes with the device-helpers slice"),
         (cfg.enable_denoise, "denoising comes with the device-helpers slice"),
         (cfg.adaptive_qp,
          "adaptive QP (QPM / segment overrides) comes with the "
          "device-helpers slice"),
         (cfg.constrained_intra,
-         "constrained intra comes with the intra-in-P slice"),
+         "constrained intra runs on the host path, which comes with the "
+         "device-helpers slice"),
         (cfg.mesh_pictures,
          "mesh picture parallelism comes with the multi-device slice"),
     )
@@ -196,10 +201,10 @@ class EncodedAu:
 
 
 class Encoder:
-    """HEVC encoder (CQP; low-delay P or B, random access) whose pixel
-    stages run on the card.
+    """HEVC encoder (CQP or VBR; low-delay P or B, random access) whose
+    pixel stages run on the card.
 
-    device: None (the default) runs on torch.device("cuda") and raises
+    device: None (the default) or "cuda" runs on the card and raises
     where there is no CUDA device; "cpu" runs every stage with the
     kernels' plain PyTorch versions (the tests' mode)."""
 
@@ -208,13 +213,11 @@ class Encoder:
         why = slice_unsupported(self.cfg)
         if why is not None:
             raise NotImplementedError(why)
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device available; pass device='cpu' to run "
-                    "the encoder on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "encoder on the CPU")
         self._frame_idx = 0
         self._ref_planes = None      # previous picture planes (post-filter)
         self._ref_poc = 0
@@ -230,7 +233,84 @@ class Encoder:
         self._dev_motion: dict = {}
         self._dev_motion_cap = 6
         self._poc_base = 0
+        # dynamic preset of speed control (set_speed_control): enc_mode
+        # floats in [cfg.enc_mode, 11], adjusted after each picture
+        self._dyn_enc_mode: int | None = None
+        self._speed_target_fps: float | None = None
+        # streaming state a checkpoint() carries across: the scene-cut
+        # context, the per-layer references and the rate-control state
+        self._ckpt_prev_y = None
+        self._ckpt_ll_last: dict = {}
+        self._ckpt_rc_state: dict | None = None
+        self._resuming = False
         self.last_rc = None
+
+    # ------------------------------------------------- checkpoint / resume
+
+    def checkpoint(self) -> dict:
+        """Snapshot of the streaming state after a completed
+        encode_pictures() segment: frame counter, POC base, the reference
+        planes per temporal layer (the DPB), the scene-cut context, the
+        rate-control state (deep-copied) and the TMVP motion, host and
+        device. Plain numpy and Python data, picklable and device-free,
+        in the JAX package's layout: a fresh Encoder restored from it (on
+        any device, and from a JAX package checkpoint too) continues the
+        stream byte for byte."""
+        rc_state = None
+        if self.last_rc is not None:
+            rc_state = copy.deepcopy({k: v for k, v in
+                                      self.last_rc.__dict__.items()
+                                      if k != "cfg"})
+        return {
+            "frame_idx": self._frame_idx,
+            "poc_base": self._poc_base,
+            "ll_last": {
+                layer: (idx, tuple(np.asarray(p) for p in planes), poc)
+                for layer, (idx, planes, poc) in self._ckpt_ll_last.items()},
+            "prev_y": (None if self._ckpt_prev_y is None
+                       else np.asarray(self._ckpt_prev_y)),
+            "rc": rc_state,
+            "ref_planes": (None if self._ref_planes is None
+                           else tuple(np.asarray(p)
+                                      for p in self._ref_planes)),
+            "ref_poc": self._ref_poc,
+            "ref_motion": {k: {kk: (vv.copy() if isinstance(vv, np.ndarray)
+                                    else copy.deepcopy(vv))
+                               for kk, vv in v.items()}
+                           for k, v in self._ref_motion.items()},
+            "dev_motion": {k: (v[0].cpu().numpy(), v[1].cpu().numpy(),
+                               v[2])
+                           for k, v in self._dev_motion.items()},
+        }
+
+    def restore(self, ckpt: dict) -> None:
+        """Restore a checkpoint() snapshot into this (fresh) encoder; the
+        device motion goes to this encoder's device, and the next
+        encode_pictures() call continues the stream."""
+        self._frame_idx = int(ckpt["frame_idx"])
+        self._poc_base = int(ckpt["poc_base"])
+        self._ckpt_ll_last = {
+            layer: (idx, tuple(planes), poc)
+            for layer, (idx, planes, poc) in ckpt["ll_last"].items()}
+        self._ckpt_prev_y = ckpt["prev_y"]
+        self._ckpt_rc_state = copy.deepcopy(ckpt.get("rc"))
+        self._ref_planes = (None if ckpt["ref_planes"] is None
+                            else tuple(ckpt["ref_planes"]))
+        self._ref_poc = ckpt["ref_poc"]
+        self._ref_motion = {k: dict(v)
+                            for k, v in ckpt["ref_motion"].items()}
+        self._dev_motion = {
+            k: (torch.from_numpy(np.array(v[0], np.int32)).to(self.device),
+                torch.from_numpy(np.array(v[1], bool)).to(self.device),
+                v[2])
+            for k, v in ckpt["dev_motion"].items()}
+        self._resuming = True
+
+    def set_speed_control(self, target_fps: float) -> None:
+        """Enable dynamic-preset speed control toward a target encode
+        rate; enc_mode then floats in [cfg.enc_mode, 11]."""
+        self._speed_target_fps = target_fps
+        self._dyn_enc_mode = self.cfg.enc_mode
 
     def _col_for(self, col_poc):
         """Collocated motion dict for TMVP, or None. A missing entry for a
@@ -330,7 +410,8 @@ class Encoder:
             raise NotImplementedError(
                 "per-CTB segment overrides come with the device-helpers "
                 "slice")
-        feat = derive_preset(cfg.enc_mode)
+        feat = derive_preset(self._dyn_enc_mode if self._dyn_enc_mode
+                             is not None else cfg.enc_mode)
         if is_idr is None:
             is_idr = self._ref_planes is None and refs_l0 is None
         if qp is None:
@@ -377,10 +458,10 @@ class Encoder:
                            [r[1] for r in (refs_l1 or [])]]
             st.poc = poc
 
-        # ---- device context: ship the source once (uint8), keep the
-        # reference planes device-resident between frames
+        # ---- device context: ship the source once, keep the reference
+        # planes device-resident between frames
         w64, h64 = (cw + 63) // 64 * 64, (ch + 63) // 64 * 64
-        dt = np.uint8
+        dt = np.uint8 if cfg.bit_depth == 8 else np.uint16
         kind = {2: "i", 1: "p", 0: "b"}[slice_type]
 
         def dev_ref(entry):
@@ -553,41 +634,63 @@ class Encoder:
         yields each access unit as it is encoded (not pipelined)."""
         from .rate_control import RateControl
         # a new stream never motion-compensates against a previous
-        # stream's device-resident references
+        # stream's device-resident references; a resumed stream keeps its
+        # restored TMVP motion, which the next picture must see
         self._dev_dpb.clear()
-        self._ref_motion.clear()
+        if not self._resuming:
+            self._ref_motion.clear()
+        self._resuming = False
         if self.cfg.pred_structure == 2:
             yield from self._ra_pictures(list(frames))
             return
         rc = RateControl(self.cfg)
         self.last_rc = rc
-        prev_y = None
-        pending = None
+        la = (self.cfg.lookahead
+              if rc.mode == 1 and rc.target_bits and frame_qps is None else 0)
+        stream = (self._la_frames(frames, la) if la > 0
+                  else ((fr, None) for fr in frames))
+        prev_y = self._ckpt_prev_y
         b_slices = self.cfg.pred_structure == 1     # low-delay B
         # hierarchical low-delay: layer-L pictures reference the most
         # recent lower-layer picture, top-layer pictures are
         # non-referenced (TRAIL_N), and CQP adds per-layer QP offsets
         hl = self.cfg.hierarchical_levels
-        ll_last: dict[int, tuple] = {}
+        ll_last: dict[int, tuple] = dict(self._ckpt_ll_last)
+        if self._ckpt_rc_state is not None:
+            rc.__dict__.update(self._ckpt_rc_state)
+            self._ckpt_rc_state = None
+        pending = None
 
         def _emit(res, meta):
             pic = res.finish() if isinstance(res, PendingPicture) else res
-            m_idx, m_idr, m_stype, m_qp = meta
+            m_idx, m_idr, m_stype, m_qp, m_window, m_t0, m_layer = meta
+            if self._speed_target_fps is not None:
+                fps = 1.0 / max(time.perf_counter() - m_t0, 1e-9)
+                if fps < self._speed_target_fps:
+                    self._dyn_enc_mode = min(self._dyn_enc_mode + 1, 11)
+                elif fps > 2.0 * self._speed_target_fps:
+                    self._dyn_enc_mode = max(self._dyn_enc_mode - 1,
+                                             self.cfg.enc_mode)
             data = pic.nal_bytes
-            # strict-CBR filler: pad the AU so the VBV cannot overflow
+            # strict-CBR filler: pad the AU so the VBV cannot overflow;
+            # filler bits count toward the RC totals
             fill = rc.filler_bits(8 * len(data))
             if fill >= 16 * 8:
                 nbytes = fill // 8 - 7   # NAL overhead
                 data += wrap_nal(NalUnitType.FD_NUT,
                                  b"\xff" * nbytes + b"\x80")
-            rc.update(8 * len(data), m_qp)
+            if m_window is not None:
+                rc.update_lookahead(8 * len(data), m_qp, m_window[0],
+                                    is_idr=m_idr, layer=m_layer)
+            else:
+                rc.update(8 * len(data), m_qp)
             if self.cfg.enable_hrd:
                 data = self._hrd_sei(m_idr) + data
             return EncodedAu(data=data, recon=pic.recon, poc=pic.poc,
                              slice_type=m_stype, is_idr=m_idr,
                              display_idx=m_idx, decode_idx=m_idx)
 
-        for fr in frames:
+        for fr, window in stream:
             idx = self._frame_idx
             self._frame_idx += 1
             is_idr = self._frame_is_idr(idx)
@@ -612,30 +715,90 @@ class Encoder:
             if frame_qps is not None and idx < len(frame_qps):
                 qp = int(frame_qps[idx])
             else:
-                qp = rc.pick_qp(is_idr, window=None, layer=layer)
+                qp = rc.pick_qp(is_idr, window=window, layer=layer)
                 if rc.mode == 0 and layer > 0:
                     qp = min(qp + layer + 1, 51)
             qp = min(max(qp, self.cfg.min_qp_allowed),
                      self.cfg.max_qp_allowed)
+            t0 = time.perf_counter()
             # every layer's most recent picture can still be referenced by
             # later pictures: keep them alive in the decoder's DPB
             retain = {e[2] for e in ll_last.values()}
             stype = 2 if is_idr else (0 if b_slices else 1)
-            meta = (idx, is_idr, stype, qp)
+            meta = (idx, is_idr, stype, qp, window, t0, layer)
             # one-frame-deep pipelining: dispatch this frame's device work
             # before finalizing the previous frame, so the host walk
-            # overlaps the device compute + download
+            # overlaps the device compute + download. Only under CQP
+            # without speed control: rate control needs this picture's
+            # bits, and speed control its time, before the next picture
+            can_pipe = rc.mode == 0 and self._speed_target_fps is None
             res = self.encode_frame(fr, is_idr=is_idr, poc=rel, qp=qp,
                                     slice_type=stype, refs_l0=refs_l0,
                                     non_ref=non_ref, retain_pocs=retain,
-                                    pipelined=True)
+                                    pipelined=can_pipe)
             if hl > 0 and (layer < hl or is_idr):
                 ll_last[0 if is_idr else layer] = (idx, res.ref_planes, rel)
             if pending is not None:
                 yield _emit(*pending)
-            pending = (res, meta)
+                pending = None
+            if isinstance(res, PendingPicture):
+                pending = (res, meta)
+            else:
+                yield _emit(res, meta)
         if pending is not None:
             yield _emit(*pending)
+        # segment finished: the resumable state checkpoint() carries
+        self._ckpt_prev_y = prev_y
+        self._ckpt_ll_last = ll_last
+
+    # ------------------------------------------------------------ lookahead
+
+    def _la_complexities(self, lumas: list[np.ndarray],
+                         prev_y) -> list[float]:
+        """Per-picture complexities for the lookahead RC: one batched
+        gpu.analysis.lookahead_stats over [prev] + lumas on the encoder's
+        device. The global-motion-compensated decimated SAD against the
+        predecessor is the complexity; the stream's very first picture
+        (no predecessor) takes a variance-derived intra proxy."""
+        from ..gpu.analysis import lookahead_stats
+        h, w = lumas[0].shape
+        h4, w4 = (h + 3) // 4 * 4, (w + 3) // 4 * 4
+        first = prev_y if prev_y is not None else lumas[0]
+        stack = np.stack([pad_plane(p.astype(np.int32), w4, h4)
+                          for p in [first] + lumas])
+        st = lookahead_stats(torch.from_numpy(stack).to(self.device))
+        zz = st["gm_sad"].cpu().numpy().astype(np.float64)
+        if prev_y is None:
+            var = float(st["variance"][0].cpu())
+            zz[0] = max(float(np.sqrt(var)) / 4.0, 1e-3)
+        return [max(float(c), 1e-3) for c in zz]
+
+    def _la_frames(self, frames, la: int):
+        """Sliding lookahead queue: yields (frame, window) where window =
+        [this frame's complexity, next <= la complexities]; refills in
+        batches of up to 2(la+1) frames so the statistics stay batched."""
+        it = iter(frames)
+        buf: deque = deque()            # (frame, complexity)
+        prev_y = None
+        done = False
+        while True:
+            if not done and len(buf) < la + 1:
+                batch = []
+                while len(batch) < 2 * (la + 1) - len(buf):
+                    try:
+                        batch.append(next(it))
+                    except StopIteration:
+                        done = True
+                        break
+                if batch:
+                    ys = [np.asarray(f.y) for f in batch]
+                    cxs = self._la_complexities(ys, prev_y)
+                    prev_y = ys[-1]
+                    buf.extend(zip(batch, cxs))
+            if not buf:
+                return
+            fr, c0 = buf.popleft()
+            yield fr, [c0] + [c for _, c in itertools.islice(buf, la)]
 
     # ------------------------------------------------------ random access
 

@@ -297,13 +297,13 @@ def test_encoder_without_device_needs_a_gpu():
 
 @pytest.mark.parametrize("kw", [
     dict(constrained_intra=True),
-    dict(pred_structure=2, enc_mode=8),
+    dict(pred_structure=2, enc_mode=5),
     dict(tile_columns=2),
     dict(enc_mode=4),
-    dict(enc_mode=8),
-    dict(bit_depth=10),
+    dict(enc_mode=0),
+    dict(tile_rows=2),
     dict(chroma_format=2),
-    dict(rate_control_mode=1, target_bitrate=1000000),
+    dict(chroma_format=3, rate_control_mode=1, target_bitrate=1000000),
     dict(enable_denoise=True),
     dict(improve_sharpness=True),
 ])

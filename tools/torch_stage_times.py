@@ -1,10 +1,12 @@
 """Where the time goes in the PyTorch/CUDA port at 1080p, on one GPU.
 
     python3 tools/torch_stage_times.py [--frames N] [--structure ippp|ra]
+                                       [--enc-mode M] [--bit-depth 8|10]
 
-Encodes N frames of the benchmark content (1920x1080, M7, qp 32; IPPP, or
-with --structure ra random access with hierarchical B, hl=2) twice
-through Encoder.encode_pictures:
+Encodes N frames of the benchmark content (1920x1080, M7 or the preset
+--enc-mode gives, qp 32, 8-bit or at --bit-depth 10 the samples times 4
+plus 2-bit noise; IPPP, or with --structure ra random access with
+hierarchical B, hl=2) twice through Encoder.encode_pictures:
 
   1. with the stage hook of gpu.encode (STAGE_TIMER) set: every stage of
      the picture pipelines (upload, hme_search, the fused device stages,
@@ -61,6 +63,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--structure", choices=("ippp", "ra"), default="ippp")
+    ap.add_argument("--enc-mode", type=int, default=7, choices=range(6, 12),
+                    help="preset (M8-M9 put intra CUs in inter pictures)")
+    ap.add_argument("--bit-depth", type=int, default=8, choices=(8, 10))
     args = ap.parse_args()
     if args.frames < 4:
         ap.error("--frames must be at least 4 (two warm-up pictures)")
@@ -83,11 +88,12 @@ def main() -> int:
         return 1
     K.build_all()
     n = args.frames
-    frames = make_frames(n, 1920, 1080, seed=7)
+    frames = make_frames(n, 1920, 1080, seed=7, bit_depth=args.bit_depth)
     ra = args.structure == "ra"
     extra = dict(pred_structure=2, hierarchical_levels=2) if ra else {}
     cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
-                        enc_mode=7, intra_period=-1, **extra)
+                        enc_mode=args.enc_mode, bit_depth=args.bit_depth,
+                        intra_period=-1, **extra)
 
     # ---- 1. every stage synchronized
     timer = StageTimer(K.KERNELS)
@@ -145,6 +151,7 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     res = {
         "card": smi, "frames": n, "structure": args.structure,
+        "enc_mode": args.enc_mode, "bit_depth": args.bit_depth,
         "streams_equal": staged == plain,
         "kernels": [k.name for k in K.KERNELS],
         "stages": {k: {"median_s": float(np.median(v["s"])),
