@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Phases (one line each, with seconds; any failure exits nonzero). The
-timed card phases (kernels, main, ra, cli_1080p) run first with nothing
-else on the host; then the CPU reference encodes of every check run in
-worker processes while the card encodes the small clips:
+timed card phases (kernels, main, ra, cli_1080p, host_1080p) run first
+with nothing else on the host; then the CPU reference encodes of every
+check run in worker processes while the card encodes the small clips:
   1. card      name / power limit (nvidia-smi) and versions
   2. build     nvcc builds of the CUDA kernels (csrc/), all at once, with
                each kernel's registers, shared memory and spills, and
@@ -19,16 +19,16 @@ worker processes while the card encodes the small clips:
                and call_ms, the host-inclusive time of one wrapper call
                (what a launch-bound caller pays); the plain version's
                device time and the bound beside them
-  4. main      1920x1080 x 8 frames, M7, qp 32, IPPP, on the card: IDR /
+  4. main      1920x1080 x 5 frames, M7, qp 32, IPPP, on the card: IDR /
                first P / steady P seconds, kernel launches per P picture
                (all > 0), recon PSNR
-  5. ra        1920x1080 x 9 frames, M7, qp 32, random access (hl=2), on
-               the card: IDR, P-anchor and per-layer B seconds per
-               picture, kernel launches per B picture (all > 0), recon
-               PSNR
+  5. ra        1920x1080 x 5 frames, M7, qp 32, random access (hl=2: I0
+               P4 B2 B1 B3), on the card: IDR, P-anchor and per-layer B
+               seconds per picture, kernel launches per B picture (all >
+               0), recon PSNR
   6. cli_1080p the command line (svt_hevc_tpu_torch.app's main, in a
                subprocess on the card) on a seeded 1920x1080 10-bit raw
-               clip of 8 frames with new textured ramps on the odd
+               clip of 5 frames with new textured ramps on the odd
                pictures:
                -bit-depth 10 -encMode 8 -intra-period -1 -rc 1 -tbr
                8000000 -fps 50 (VBR, default lookahead 17): IDR and per-P
@@ -37,37 +37,63 @@ worker processes while the card encodes the small clips:
                the host's wait in the any_intra read, QP per picture,
                kbit/s against the target, K1 / K2 launches per P picture
                (all > 0), PSNR-Y, decode == recon; lookahead_stats card
-               == CPU on the clip's batch and its time at batches of 9
+               == CPU on the clip's batch and its time at batches of 6
                and 37 frames
-  7. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
+  7. host_1080p
+               the host path's target configuration: 1920x1080 x 3
+               frames, M7, qp 32, IPPP, 2x2 tiles, improve_sharpness
+               (adaptive QP with the content classes), on the card:
+               seconds and bytes per picture, K1 launches per picture
+               (the motion seed, > 0 in each P picture), the QP maps, the
+               synchronized stage split (dev_me_field, ois_maps, qp_map,
+               pass 1, DLF + SAO, pass 2, CABAC), decode == recon; the
+               device times of ois_packed, ctb_activity and denoise_plane
+               (8 and 10 bits) at 1920x1088
+  8. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
                the CPU: streams byte-identical, equal to the reference
                sha256, decoded by the port's decoder to the recon
-  8. small_ra  512x256 x 9 frames, M7, qp 32, random access (hierarchical
+  9. small_ra  512x256 x 9 frames, M7, qp 32, random access (hierarchical
                B, hl=2), on the card and on the CPU: streams
                byte-identical, equal to the reference sha256, decoded by
                the port's decoder to the recon
-  9. small_new 512x256 clips of M8-M9, 10-bit and VBR the same way
+ 10. small_new 512x256 clips of M8-M9, 10-bit and VBR the same way
                (card == CPU == reference sha256, decode == recon): M8
                IPPP x10 and M9 RA hl=2 x9 (new ramps on the odd pictures;
                intra CUs in P and in B pictures asserted), 10-bit M7 IPPP
                x10, VBR with lookahead 8 x10
- 10. variants  the other configurations the port accepts (presets M6,
-               M10, M11; hierarchical low-delay P; low-delay B; random
-               access hl=1; open GOP with a CRA and RASL pictures),
-               512x256 x 5 frames each (x 9 for the open GOP): card
-               stream == CPU stream, decoded to the recon
- 11. stream_variants
+ 11. variants  the other fused-path configurations (presets M6, M10,
+               M11; hierarchical low-delay P; low-delay B; random access
+               hl=1; open GOP with a CRA and RASL pictures), 512x256 x 5
+               frames each (x 9 for the open GOP): card stream == CPU
+               stream, decoded to the recon
+ 12. stream_variants
                further paths, 512x256, card == CPU, decode == recon:
                10-bit RA hl=2, 10-bit M8 low-delay B, VBR with
                hierarchical low-delay P, a checkpoint split on the card
                == the continuous encode, a CPU-made checkpoint restored
                on the card, EncoderHandle streaming == batch, speed
                control (the dynamic preset rising to M11)
- 12. cpu_1080p the main phase's I + P access units equal to a CPU encode
+ 13. small_host
+               the host path at small sizes, card == CPU, decode ==
+               recon: 2x2 tiles, 4:2:2, improve_sharpness, constrained
+               intra (a fused I and host P pictures), M5 (256x128) and
+               denoise (a noisy source, then the fused path) against the
+               JAX streams' sha256; MCTS, sharpness with a slice per
+               tile, 4:4:4 RA hl=2, sharpness RA hl=2 (host-path B
+               pictures), bit-rate reduction at 10 bits, segment
+               overrides, M0 (256x128) and speed control rising from M5
+               into the fused presets
+ 14. host_check
+               every device helper of phase host_1080p (the two ME
+               fields, the three pictures' OIS maps, ctb_activity and QP
+               maps) and denoise_plane of the clip's frames at 8 and 10
+               bits equal to a CPU computation from the same inputs (in a
+               worker, with the plain versions)
+ 15. cpu_1080p the main phase's I + P access units equal to a CPU encode
                of the first two frames; the ra phase's I0, P4 and B2
                access units equal to the first three of a CPU encode of
                the same frames; the cli_1080p stream's I + P access units
-               equal to the first two of a CPU encode of its 8 frames
+               equal to the first two of a CPU encode of its 5 frames
                (the lookahead sees the same frames)
 The line before the last is the kernel JSON, the last line the device
 JSON. Imports nothing of JAX.
@@ -125,12 +151,68 @@ SMALL_NEW = {
 }
 
 # phase cli_1080p: the command line's tokens (beyond -i / -b / -o) and
-# its clip, 8 frames of make_frames(seed=7, patches=True, bit_depth=10)
-CLI_FRAMES = 8
+# its clip, 5 frames of make_frames(seed=7, patches=True, bit_depth=10)
+CLI_FRAMES = 5
 CLI_TBR = 8_000_000
 CLI_TOKENS = ["-w", "1920", "-h", "1080", "-bit-depth", "10", "-encMode",
               "8", "-intra-period", "-1", "-rc", "1", "-tbr", str(CLI_TBR),
               "-fps", "50"]
+
+# phase host_1080p: the host path's target configuration (1920x1080 M7
+# qp 32 IPPP, 2x2 tiles, sharpness-driven adaptive QP) on
+# make_frames(HOST_FRAMES, 1920, 1080, seed=7)
+HOST_FRAMES = 3
+HOST_KW = dict(tile_columns=2, tile_rows=2, improve_sharpness=True)
+
+# The JAX reference package's host-path streams of phase small_host
+# (qp 32, M7 unless stated, intra_period=-1, fps_num=50, make_frames(
+# seed=11, ...)), computed on the CPU: (config, frames, make_frames
+# arguments beyond seed=11, width, height, sha256, bytes)
+SMALL_HOST = {
+    "host_tiles_2x2": (dict(tile_columns=2, tile_rows=2), 3, {}, 512, 256,
+                       "8dea6afd9e8fd424c034f9759a9bf6f4"
+                       "4f0323c30a7676dfb648564b2a9763b9", 16785),
+    "host_422": (dict(chroma_format=2), 3, dict(chroma_format=2), 512, 256,
+                 "2e9f6f80c5e421bd73a95993f5b8396d"
+                 "983040962cc96ee69764207e0a0def27", 17429),
+    "host_sharp": (dict(improve_sharpness=True), 3, {}, 512, 256,
+                   "b98c8fa157763617fef88b0dd513dc3f"
+                   "cee32b0c565a4d93d733dd32a4addaac", 16143),
+    "host_cip": (dict(constrained_intra=True), 3, {}, 512, 256,
+                 "fb820f6510393291ec4a39fd82a3ca84"
+                 "bbb28b4fbbcd4dd719e6f95fe061e602", 16151),
+    "host_m5": (dict(enc_mode=5), 3, {}, 256, 128,
+                "ba947e104955e40bbd57b9d1c79182ce"
+                "08e55a8e7868f55222cfad8a6e659451", 3959),
+    # the fused path behind the denoiser (noise of sd 4 on the luma)
+    "host_denoise": (dict(enable_denoise=True), 3, dict(noise=4.0), 512,
+                     256, "e594d6bc861835510800cc80bc8cfa31"
+                     "bba262f34fc015f25b1e57738c2dafd5", 5005),
+}
+# the other host-path configurations of the CPU tests, card == CPU only:
+# (name, config, frames, make_frames arguments, width, height, mode);
+# mode plain, sov (segment overrides on the first and third pictures) or
+# speed (speed control toward 1e9 fps, rising from M5 into the fused
+# presets)
+HOST_VARIANTS = (
+    ("MCTS 2x1", dict(tile_columns=2, constrained_motion_tiles=True), 3,
+     {}, 512, 256, "plain"),
+    ("sharp, 2x2 tiles, a slice per tile",
+     dict(tile_columns=2, tile_rows=2, tile_slice_mode=1,
+          improve_sharpness=True), 3, {}, 512, 256, "plain"),
+    ("4:4:4 RA hl=2", dict(chroma_format=3, pred_structure=2,
+                           hierarchical_levels=2), 5,
+     dict(chroma_format=3), 512, 256, "plain"),
+    ("sharp RA hl=2", dict(improve_sharpness=True, pred_structure=2,
+                           hierarchical_levels=2), 5, {}, 512, 256,
+     "plain"),
+    ("brr 10-bit", dict(bit_rate_reduction=True, bit_depth=10), 3,
+     dict(bit_depth=10), 512, 256, "plain"),
+    ("segment overrides", dict(segment_ov_enabled=True), 3, {}, 512, 256,
+     "sov"),
+    ("M0", dict(enc_mode=0), 2, {}, 256, 128, "plain"),
+    ("speed control from M5", dict(enc_mode=5), 4, {}, 256, 128, "speed"),
+)
 
 # launches per device-time sample (CUDA events around a run of many
 # launches)
@@ -184,14 +266,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_frames(n, w, h, seed=7, patches=False, bit_depth=8):
+def make_frames(n, w, h, seed=7, patches=False, bit_depth=8,
+                chroma_format=1, noise=0.0):
     """Synthetic content: textured luma and chroma with a global pan and a
     moving object (the repository benchmark's generator). patches: every
     odd picture gets (w // 256) * (h // 256) new 64x64 smooth ramps of
     seeded slope, direction and place, which no reference holds (intra
     CUs at M8-M9; the even pictures show what a picture without them
     costs). bit_depth 10: the samples times 4 plus seeded 2-bit noise, as
-    uint16."""
+    uint16. noise: seeded Gaussian noise of that standard deviation on
+    the 8-bit luma (a source the denoiser filters). chroma_format 2 / 3:
+    the 4:2:0 chroma rows (and columns) repeated to 4:2:2 / 4:4:4."""
     from svt_hevc_tpu_torch.io.yuv import Frame
     rng = np.random.default_rng(seed)
     big = rng.integers(0, 256, (h + 128, w + 128)).astype(np.float32)
@@ -228,11 +313,19 @@ def make_frames(n, w, h, seed=7, patches=False, bit_depth=8):
                 if prng.integers(0, 2):
                     ramp = ramp[:, ::-1]
                 y[py:py + 64, px:px + 64] = ramp
+        if noise:
+            grng = np.random.default_rng(seed * 1000 + 700 + i)
+            y = np.clip(y + grng.normal(0, noise, y.shape), 0,
+                        255).astype(np.uint8)
         if bit_depth == 10:
             nrng = np.random.default_rng(seed * 1000 + 500 + i)
             y, cb, cr = (p.astype(np.uint16) * 4
                          + nrng.integers(0, 4, p.shape).astype(np.uint16)
                          for p in (y, cb, cr))
+        if chroma_format >= 2:
+            cb, cr = np.repeat(cb, 2, 0), np.repeat(cr, 2, 0)
+        if chroma_format == 3:
+            cb, cr = np.repeat(cb, 2, 1), np.repeat(cr, 2, 1)
         frames.append(Frame(y=y, cb=cb, cr=cr))
     return frames
 
@@ -644,6 +737,9 @@ def cpu_reference(job):
         enc.set_speed_control(1e9)
         hdr, aus = enc.headers(), list(enc.encode_pictures(frames))
         extra = enc._dyn_enc_mode
+    elif mode == "sov":
+        hdr, aus = _encode(_with_segment_ov(frames, w, h), w, h, "cpu",
+                           **job["kw"])
     else:
         hdr, aus = _encode(frames, w, h, "cpu", n_aus=job.get("n_aus"),
                            **job["kw"])
@@ -661,7 +757,7 @@ def cpu_jobs() -> dict:
         return {"frames": (n, w, h, seed, fkw or {}), "kw": kw,
                 "n_aus": n_aus, "mode": mode}
 
-    jobs = {"ra": job(9, 1920, 1080, 7, dict(RA_KW, fps_num=50), 3),
+    jobs = {"ra": job(5, 1920, 1080, 7, dict(RA_KW, fps_num=50), 3),
             "cli": job(CLI_FRAMES, 1920, 1080, 7, {}, 2,
                        dict(patches=True, bit_depth=10), "cli"),
             "main": job(2, 1920, 1080, 7, dict(fps_num=50)),
@@ -674,7 +770,27 @@ def cpu_jobs() -> dict:
     for i, (_, kw, n, fkw, mode) in enumerate(STREAM_VARIANTS):
         jobs[f"stream_variant{i}"] = job(n, 512, 256, 11, kw, fkw=fkw,
                                     mode=mode)
+    for name, (kw, n, fkw, w, h, _, _) in SMALL_HOST.items():
+        jobs[name] = job(n, w, h, 11, kw, fkw=fkw)
+    for i, (_, kw, n, fkw, w, h, mode) in enumerate(HOST_VARIANTS):
+        jobs[f"host_variant{i}"] = job(n, w, h, 11, kw, fkw=fkw, mode=mode)
     return jobs
+
+
+def _with_segment_ov(frames, w, h):
+    """Per-CTB segment overrides (CTB 32) on the first and third
+    pictures: a direct QP, a delta QP and a deblock-density delta."""
+    from svt_hevc_tpu_torch.config import (SEG_DENSITY_DEBLOCK_OV,
+                                           SEG_DENSITY_QP_OV,
+                                           SEG_QP_OV_DELTA,
+                                           SEG_QP_OV_DIRECT)
+    sov = np.zeros(((h + 31) // 32, (w + 31) // 32, 3), np.int32)
+    sov[0, 0] = (SEG_DENSITY_QP_OV | SEG_QP_OV_DIRECT, 20, 0)
+    sov[1, 2] = (SEG_DENSITY_QP_OV | SEG_QP_OV_DELTA, 6, 0)
+    sov[-1, -1] = (SEG_DENSITY_DEBLOCK_OV, 0, -4)
+    for i in (0, 2):
+        frames[i].segment_ov = sov
+    return frames
 
 
 def _decodes_to_recon(stream: bytes, aus, what: str) -> None:
@@ -765,7 +881,7 @@ def phase_main(results: dict):
     from svt_hevc_tpu_torch.gpu import kernels as K
 
     t_phase = time.perf_counter()
-    n = 8
+    n = 5
     frames = make_frames(n, 1920, 1080, seed=7)
     cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
                         enc_mode=7, intra_period=-1)
@@ -816,7 +932,7 @@ def phase_ra(results: dict):
     from svt_hevc_tpu_torch.gpu import kernels as K
 
     t_phase = time.perf_counter()
-    n = 9
+    n = 5
     frames = make_frames(n, 1920, 1080, seed=7)
     cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
                         enc_mode=7, intra_period=-1, **RA_KW)
@@ -842,7 +958,7 @@ def phase_ra(results: dict):
         t_prev, c_prev = t_now, c_now
     totals = counts() - c_start
     per_b = [c for au, _, _, c in rows if au.slice_type == 0]
-    check(len(per_b) == 6, f"RA: {len(per_b)} B pictures, not 6")
+    check(len(per_b) == 3, f"RA: {len(per_b)} B pictures, not 3")
     for i, c in enumerate(per_b):
         check(all(c > 0), f"B picture {i}: launches {dict(zip(names, c))}")
     for k, name in enumerate(names):
@@ -1035,7 +1151,7 @@ def phase_cli_1080p(results: dict):
     nk = len(names)
     p_rows = [row for row in rows if row["slice_type"] == 1]
     check(len(p_rows) == n - 1 and rows[0]["slice_type"] == 2,
-          "cli_1080p: not one IDR and 7 P pictures")
+          f"cli_1080p: not one IDR and {n - 1} P pictures")
     for row in p_rows:
         check(all(c > 0 for c in row["counts"][:nk]),
               f"cli_1080p P{row['poc']}: launches {row['counts'][:nk]}")
@@ -1082,11 +1198,11 @@ def phase_cli_1080p(results: dict):
                  / want["variance"]).max())
     check(rel <= 1e-6, f"lookahead_stats variance: card/CPU rel {rel}")
     big = ys.cuda().repeat(5, 1, 1)[:37]
-    t9, t37 = _time_lookahead(ys.cuda()), _time_lookahead(big)
-    results["lookahead_stats"] = {"s_9": t9, "s_37": t37}
+    t_b, t37 = _time_lookahead(ys.cuda()), _time_lookahead(big)
+    results["lookahead_stats"] = {f"s_{ys.shape[0]}": t_b, "s_37": t37}
     log(f"  lookahead_stats card == CPU (variance rel {rel:.2e}); card "
-        f"{t9 * 1e3:.3f} ms per batch of 9 frames, {t37 * 1e3:.3f} ms per "
-        f"batch of 37")
+        f"{t_b * 1e3:.3f} ms per batch of {ys.shape[0]} frames, "
+        f"{t37 * 1e3:.3f} ms per batch of 37")
     log(f"phase cli_1080p: 1920x1080 x{n} 10-bit M8 VBR through the command "
         f"line on the card ({time.perf_counter() - t_phase:.3f} s)")
     return stream
@@ -1187,13 +1303,290 @@ def phase_stream_variants(cpus):
         f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
 
 
+class _StageSplit:
+    """gpu.encode.STAGE_TIMER of phase host_1080p: the synchronized wall
+    seconds of every named stage, summed per picture kind and stage."""
+
+    def __init__(self):
+        self.s: dict = {}
+
+    def stage(self, name: str):
+        import contextlib
+
+        import torch
+
+        @contextlib.contextmanager
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            self.s.setdefault(name, []).append(time.perf_counter() - t0)
+        return timed()
+
+
+class _HostCapture:
+    """For one encode, wraps the host path's device helpers
+    (pipeline.encoder.dev_me_field, Encoder._ois_maps,
+    gpu.analysis.ctb_activity, Encoder._derive_qp_map) and keeps every
+    call's inputs and outputs on the host, for the CPU comparison."""
+
+    def __enter__(self):
+        from svt_hevc_tpu_torch.gpu import analysis as ga
+        from svt_hevc_tpu_torch.pipeline import encoder as pe
+        self.me, self.ois, self.act, self.qpm = [], [], [], []
+        self._saved = (pe.dev_me_field, pe.Encoder._ois_maps,
+                       ga.ctb_activity, pe.Encoder._derive_qp_map)
+        me_f, ois_f, act_f, qpm_f = self._saved
+
+        def me(src, ref, device):
+            out = me_f(src, ref, device)
+            self.me.append((src, ref, out))
+            return out
+
+        def ois(enc, y):
+            out = ois_f(enc, y)
+            self.ois.append((y if isinstance(y, np.ndarray)
+                             else y.cpu().numpy(), out))
+            return out
+
+        def act(y, ctb):
+            out = act_f(y, ctb)
+            self.act.append((y.cpu().numpy(), ctb, out.cpu().numpy()))
+            return out
+
+        def qpm(enc, y, base_qp, frame=None):
+            out = qpm_f(enc, y, base_qp, frame=frame)
+            self.qpm.append((base_qp, out))
+            return out
+
+        pe.dev_me_field, pe.Encoder._ois_maps = me, ois
+        ga.ctb_activity, pe.Encoder._derive_qp_map = act, qpm
+        return self
+
+    def __exit__(self, *exc):
+        from svt_hevc_tpu_torch.gpu import analysis as ga
+        from svt_hevc_tpu_torch.pipeline import encoder as pe
+        (pe.dev_me_field, pe.Encoder._ois_maps, ga.ctb_activity,
+         pe.Encoder._derive_qp_map) = self._saved
+
+
+def _denoise_digests(frames, maxval: int, device: str) -> list:
+    """denoise_plane of every plane of frames on device: (sha256 of the
+    float32 output plane, sigma) per plane."""
+    import torch
+    from svt_hevc_tpu_torch.gpu.analysis import denoise_plane
+    out = []
+    for f in frames:
+        for p in (f.y, f.cb, f.cr):
+            t = torch.from_numpy(p.astype(np.int32)).to(device)
+            plane, sigma = denoise_plane(t, maxval=maxval)
+            out.append((hashlib.sha256(plane.cpu().numpy().tobytes())
+                        .hexdigest(), float(sigma)))
+    return out
+
+
+def cpu_host_helpers(job):
+    """The CPU side of phase host_1080p, in a worker process: every
+    device helper of the card's encode recomputed with the plain
+    versions on the CPU from the same inputs (the ME fields and OIS maps
+    from the captured planes, the activities and the QP maps from the
+    regenerated frames in encode order), and denoise_plane of the clip's
+    frames at 8 and 10 bits. Returns (results, seconds)."""
+    import torch
+    from svt_hevc_tpu_torch import Encoder
+    from svt_hevc_tpu_torch.gpu.analysis import ctb_activity
+    from svt_hevc_tpu_torch.pipeline.encoder import dev_me_field
+    torch.set_num_threads(CPU_THREADS)
+    t0 = time.perf_counter()
+    enc = Encoder(_cfg(1920, 1080, **HOST_KW), device="cpu")
+    res = {"me": [dev_me_field(src, ref, "cpu") for src, ref in job["me"]],
+           "ois": [enc._ois_maps(y) for y in job["ois"]],
+           "act": [ctb_activity(torch.from_numpy(y), ctb).numpy()
+                   for y, ctb in job["act"]]}
+    frames = make_frames(HOST_FRAMES, 1920, 1080, seed=7)
+    qenc = Encoder(_cfg(1920, 1080, **HOST_KW), device="cpu")
+    res["qpm"] = [qenc._derive_qp_map(f.y, qp, frame=f)
+                  for f, qp in zip(frames, job["qps"])]
+    res["denoise8"] = _denoise_digests(frames, 255, "cpu")
+    res["denoise10"] = _denoise_digests(
+        make_frames(HOST_FRAMES, 1920, 1080, seed=7, bit_depth=10), 1023,
+        "cpu")
+    return res, time.perf_counter() - t0
+
+
+def phase_host_1080p(results: dict):
+    """The host path's target configuration on the card (I + 2 P), with
+    its stage split, K1 launches per picture and the helpers' device
+    times. Returns (the CPU job of the helpers' comparison, what the
+    card computed for it)."""
+    import torch
+    from svt_hevc_tpu_torch import Encoder
+    from svt_hevc_tpu_torch.gpu import analysis as ga
+    from svt_hevc_tpu_torch.gpu import encode as genc
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    from svt_hevc_tpu_torch.pipeline.encoder import pad_plane
+
+    t_phase = time.perf_counter()
+    n = HOST_FRAMES
+    frames = make_frames(n, 1920, 1080, seed=7)
+    enc = Encoder(_cfg(1920, 1080, **HOST_KW))
+    names = [k.name for k in K.KERNELS]
+    split = genc.STAGE_TIMER = _StageSplit()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    rows, aus = [], []
+    try:
+        with _HostCapture() as cap:
+            t_prev = time.perf_counter()
+            c_prev = np.array([k.launches for k in K.KERNELS])
+            for au in enc.encode_pictures(iter(frames)):
+                t_now = time.perf_counter()
+                c_now = np.array([k.launches for k in K.KERNELS])
+                rows.append((au, t_now - t_prev, c_now - c_prev))
+                aus.append(au)
+                t_prev, c_prev = t_now, c_now
+    finally:
+        genc.STAGE_TIMER = None
+    check([a.slice_type for a in aus] == [2] + [1] * (n - 1),
+          "host_1080p: not one IDR and P pictures")
+    k1 = names.index("sad_field")
+    for au, _, c in rows[1:]:
+        check(c[k1] > 0, f"host_1080p P{au.poc}: K1 launches {list(c)}")
+    for k, name in enumerate(names):
+        results[name]["launches_host"] = [int(c[k]) for _, _, c in rows]
+    check(len(cap.me) == n - 1 and len(cap.ois) == n
+          and len(cap.act) == n and len(cap.qpm) == n,
+          f"host_1080p: helper calls me {len(cap.me)} ois {len(cap.ois)} "
+          f"act {len(cap.act)} qpm {len(cap.qpm)}")
+    stream = enc.headers() + b"".join(a.data for a in aus)
+    _decodes_to_recon(stream, aus, "host_1080p")
+    psnr = _psnr([a.recon for a in aus], frames)
+    log("  1080p M7 2x2 tiles + sharp, IPPP on the host path: "
+        + ", ".join(f"{'IPB'[2 - a.slice_type]}{a.poc} {dt:.3f} s "
+                    f"({len(a.data)} bytes)" for a, dt, _ in rows)
+        + f"; PSNR-Y {psnr:.3f} dB, {len(stream)} bytes, decode == recon")
+    log("  launches per picture: " + ", ".join(
+        f"{name} {[int(c[k]) for _, _, c in rows]}"
+        for k, name in enumerate(names)))
+    for _, qmap in cap.qpm:
+        log(f"  QP map {qmap.shape[0]}x{qmap.shape[1]}: QP {qmap.min()}.."
+            f"{qmap.max()}, {len(np.unique(qmap))} values")
+    log("  stage split (synchronized s, per picture): " + "; ".join(
+        f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+        for k, v in split.s.items()))
+    results["host_1080p"] = {
+        "seconds": [dt for _, dt, _ in rows],
+        "stages": {k: v for k, v in split.s.items()}}
+
+    # the helpers' times at 1080p: CUDA events around one call, median of
+    # 10 (host enqueue included: each helper is a chain of eager ops)
+    dev = torch.device("cuda")
+    y = torch.from_numpy(pad_plane(frames[0].y, 1920, 1088)).to(dev)
+    y10 = (y << 2) + 1
+    yf = y.float()
+    times = {
+        "ois_packed": call_ms(lambda: ga.ois_packed(y), 10),
+        "ctb_activity": call_ms(lambda: ga.ctb_activity(y, 32), 10),
+        "denoise_plane 8-bit": call_ms(
+            lambda: ga.denoise_plane(yf, 255), 10),
+        "denoise_plane 10-bit": call_ms(
+            lambda: ga.denoise_plane(y10, 1023), 10)}
+    results["host_1080p"]["helper_call_ms"] = times
+    log("  helpers at 1920x1088, ms per call (events, median of 10): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    card = {"me": [out for _, _, out in cap.me],
+            "ois": [out for _, out in cap.ois],
+            "act": [out for _, _, out in cap.act],
+            "qpm": [out for _, out in cap.qpm],
+            "denoise8": _denoise_digests(frames, 255, "cuda"),
+            "denoise10": _denoise_digests(
+                make_frames(n, 1920, 1080, seed=7, bit_depth=10), 1023,
+                "cuda")}
+    job = {"me": [(src, ref) for src, ref, _ in cap.me],
+           "ois": [y for y, _ in cap.ois],
+           "act": [(y, ctb) for y, ctb, _ in cap.act],
+           "qps": [qp for qp, _ in cap.qpm]}
+    log(f"phase host_1080p: 1920x1080 x{n} through the host path on the "
+        f"card ({time.perf_counter() - t_phase:.3f} s)")
+    return job, card
+
+
+def phase_host_check(card, cpu):
+    """phase host_1080p's device helpers: card == CPU."""
+    t0 = time.perf_counter()
+    got, t_cpu = cpu.result()
+    for i, (a, b) in enumerate(zip(card["me"], got["me"])):
+        check(np.array_equal(a, b), f"host_1080p ME field {i}: card != CPU")
+    for i, (a, b) in enumerate(zip(card["ois"], got["ois"])):
+        for n in (4, 8, 16, 32):
+            check(all(np.array_equal(x, y) for x, y in zip(a[n], b[n])),
+                  f"host_1080p OIS maps {n}x{n} of picture {i}: card != CPU")
+    for key in ("act", "qpm"):
+        for i, (a, b) in enumerate(zip(card[key], got[key])):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"host_1080p {key} of picture {i}: card != CPU")
+    for key in ("denoise8", "denoise10"):
+        check(card[key] == got[key], f"host_1080p {key}: card != CPU")
+    sig = [s for _, s in card["denoise8"][::3]]
+    sig10 = [s for _, s in card["denoise10"][::3]]
+    log(f"phase host_check: ME fields x{len(card['me'])}, OIS maps, "
+        f"ctb_activity and QP maps x{len(card['qpm'])}, denoise_plane of "
+        f"9 planes at 8 and 10 bits (luma sigma {sig} / {sig10}): card == "
+        f"CPU (CPU {t_cpu:.3f} s in a worker) "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+
+def phase_small_host(cpus):
+    """The host path at small sizes: the JAX package's sha256 for the
+    SMALL_HOST clips, card == CPU for those and the HOST_VARIANTS, decode
+    == recon."""
+    from svt_hevc_tpu_torch import Encoder
+    t0 = time.perf_counter()
+    parts = []
+    for name, (kw, n, fkw, w, h, sha_want, nbytes) in SMALL_HOST.items():
+        frames = make_frames(n, w, h, seed=11, **fkw)
+        hdr, aus = _encode(frames, w, h, "cuda", **kw)
+        s_gpu = hdr + b"".join(a.data for a in aus)
+        hdr_c, aus_c, t_cpu, _ = cpus[name].result()
+        check(s_gpu == hdr_c + b"".join(aus_c),
+              f"{name}: card stream != CPU stream")
+        sha = hashlib.sha256(s_gpu).hexdigest()
+        check(sha == sha_want and len(s_gpu) == nbytes,
+              f"{name}: sha256 {sha} / {len(s_gpu)} bytes != reference")
+        _decodes_to_recon(s_gpu, aus, name)
+        parts.append(f"{name} {w}x{h} x{n} {len(s_gpu)} bytes (sha256 "
+                     f"match)")
+    for i, (name, kw, n, fkw, w, h, mode) in enumerate(HOST_VARIANTS):
+        frames = make_frames(n, w, h, seed=11, **fkw)
+        hdr_c, aus_c, _, extra = cpus[f"host_variant{i}"].result()
+        if mode == "speed":
+            enc = Encoder(_cfg(w, h, **kw))
+            enc.set_speed_control(1e9)
+            hdr, aus = enc.headers(), list(enc.encode_pictures(frames))
+            check(enc._dyn_enc_mode == extra,
+                  f"{name}: dynamic preset {enc._dyn_enc_mode} / CPU "
+                  f"{extra}")
+        else:
+            if mode == "sov":
+                frames = _with_segment_ov(frames, w, h)
+            hdr, aus = _encode(frames, w, h, "cuda", **kw)
+        s_gpu = hdr + b"".join(a.data for a in aus)
+        check(s_gpu == hdr_c + b"".join(aus_c),
+              f"{name}: card stream != CPU stream")
+        _decodes_to_recon(s_gpu, aus, name)
+        parts.append(f"{name} {w}x{h} x{n} {len(s_gpu)} bytes")
+    log(f"phase small_host: card == CPU, decode == recon: "
+        f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
+
+
 def phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu_main, cpu_ra,
                     cpu_cli):
     """The 1080p access units of phases main, ra and cli_1080p against
     CPU encodes: I + P of the first two frames; the first three access
     units (I0, P4, B2) of the random-access stream, which the generator
     yields without encoding the rest; the first two of the command line's
-    10-bit M8 VBR stream (its lookahead batch holds all 8 frames on both
+    10-bit M8 VBR stream (its lookahead batch holds all 5 frames on both
     sides)."""
     t0 = time.perf_counter()
     _, aus_c, t_main, _ = cpu_main.result()
@@ -1237,6 +1630,7 @@ def main() -> int:
     main_aus = phase_main(results)
     ra_aus = phase_ra(results)
     cli_stream = phase_cli_1080p(results)
+    host_job, host_card = phase_host_1080p(results)
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(
@@ -1245,12 +1639,16 @@ def main() -> int:
     try:
         cpu = {name: pool.submit(cpu_reference, job)
                for name, job in cpu_jobs().items()}
+        cpu_host = pool.submit(cpu_host_helpers, host_job)
+        del host_job
         phase_small(cpu["small"])
         phase_small_ra(cpu["small_ra"])
         phase_small_new(cpu)
         phase_variants([cpu[f"variant{i}"] for i in range(len(VARIANTS))])
         phase_stream_variants([cpu[f"stream_variant{i}"]
                                for i in range(len(STREAM_VARIANTS))])
+        phase_small_host(cpu)
+        phase_host_check(host_card, cpu_host)
         phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu["main"],
                         cpu["ra"], cpu["cli"])
     finally:
@@ -1271,7 +1669,8 @@ def main() -> int:
                "launches_ra": r["launches_ra"],
                "launches_per_b_picture": r["launches_per_b_picture"],
                "launches_cli": r["launches_cli"],
-               "launches_per_p_picture_m8": r["launches_per_p_picture_m8"]}
+               "launches_per_p_picture_m8": r["launches_per_p_picture_m8"],
+               "launches_per_picture_host": r["launches_host"]}
         keys = ("device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
         row["bd10"] = {k: r["bd10"][k] for k in keys}
         if "b_launch" in r:

@@ -49,10 +49,12 @@ class EncoderHandle:
     waiting for the encode; get_packet() dequeues coded AUs. A failed
     encode surfaces in the caller with its errors.ErrorCode."""
 
-    def __init__(self, cfg: EncoderConfig, *, device=None,
-                 input_depth: int = 48, return_recon: bool = False):
+    def __init__(self, cfg: EncoderConfig, *, rd: bool | None = None,
+                 device=None, input_depth: int = 48,
+                 return_recon: bool = False):
         self.cfg = cfg.validate()
         self._enc = Encoder(cfg, device=device)
+        self._rd = rd
         self._recon = return_recon
         self._in: queue.Queue = queue.Queue(maxsize=input_depth)
         self._out: queue.Queue = queue.Queue()
@@ -114,7 +116,8 @@ class EncoderHandle:
 
     def _run(self) -> None:
         try:
-            for au in self._enc.encode_pictures(self._frames()):
+            for au in self._enc.encode_pictures(self._frames(),
+                                                rd=self._rd):
                 self._out.put(Packet(
                     data=au.data, pts=au.display_idx, dts=au.decode_idx,
                     slice_type=au.slice_type, is_idr=au.is_idr,

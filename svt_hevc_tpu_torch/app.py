@@ -4,8 +4,8 @@ Port of svt_hevc_tpu/app.py: the same tokens with the same defaults
 (-i, -b, -w, -h, -q, -n, -fps, -intra-period, -rc, -tbr, -vbv-maxrate,
 -vbv-bufsize, -o recon file, ...), plus -device {cuda,cpu} (default
 cuda): the encode runs on the card, and raises where there is none
-unless -device cpu asks for the CPU. A configuration outside the ported
-slice raises NotImplementedError naming the slice that brings it.
+unless -device cpu asks for the CPU. Mesh picture parallelism (several
+devices) raises NotImplementedError.
 
 Usage:
     python -m svt_hevc_tpu_torch.app -i in.yuv -w 352 -h 288 -q 32 -b out.265
@@ -149,10 +149,6 @@ def _encode_channel(args, in_path, out_path, recon_path=None):
         raise SystemExit(f"no frames read from {in_path}")
     w, h = frames[0].width, frames[0].height
     cfg = config_from_args(args, w, h)
-    if args.rd:
-        raise NotImplementedError(
-            "full RD mode decision (-rd 1) runs on the host path, which "
-            "comes with the device-helpers slice")
     enc = Encoder(cfg, device=args.device)
     if args.speed_ctrl:
         enc.set_speed_control(args.speed_ctrl)
@@ -161,7 +157,8 @@ def _encode_channel(args, in_path, out_path, recon_path=None):
         with open(args.qp_file) as f:
             frame_qps = [int(t) for t in f.read().split() if t.strip()]
     t0 = time.perf_counter()
-    stream, recons = enc.encode(frames, frame_qps=frame_qps)
+    stream, recons = enc.encode(frames, rd=True if args.rd else None,
+                                frame_qps=frame_qps)
     dt = time.perf_counter() - t0
 
     if out_path == "-":

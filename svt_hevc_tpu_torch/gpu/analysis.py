@@ -1,14 +1,16 @@
-"""Open-loop intra search on the card.
+"""Picture analysis on the card.
 
-PyTorch port of the intra-search part of svt_hevc_tpu/tpu/analysis.py:
-all 35 modes of every block evaluated as one batched contraction of the
-block's reference vector with the per-mode weight matrices
-(gpu/intra_weights.py), scored by Hadamard SATD.
+PyTorch port of svt_hevc_tpu/tpu/analysis.py: the open-loop intra search
+(all 35 modes of every block evaluated as one batched contraction of the
+block's reference vector with the per-mode weight matrices,
+gpu/intra_weights.py, scored by Hadamard SATD), the lookahead's batched
+statistics, and the host path's helpers (block variances, per-CTB
+activity, the noise-class-gated denoiser, the packed intra search maps).
 
-The weights are dyadic and the references integers, so every product and
-every partial sum is exact; the contractions run in float64 (exact on the
-CPU and on the card, independent of TF32 settings) and the costs come
-back as float32 like the reference's.
+The intra weights are dyadic and the references integers, so every
+product and every partial sum is exact; the contractions run in float64
+(exact on the CPU and on the card, independent of TF32 settings) and the
+costs come back as float32 like the reference's.
 """
 
 from __future__ import annotations
@@ -188,3 +190,135 @@ def lookahead_stats(ys: torch.Tensor) -> dict:
                         for b in bins]).to(torch.int32)
     return {"zz_sad": zz, "gm_sad": gm_sad, "gm_mv": gm_mv,
             "variance": var[1:], "hist": hist[1:]}
+
+
+# ------------------------------------------- the host path's helpers
+
+def block_variance(y: torch.Tensor, n: int) -> torch.Tensor:
+    """(H//N, W//N) float32 map of per-NxN-block sample variance.
+
+    Port of svt_hevc_tpu.tpu.analysis.block_variance for integer-valued
+    planes (integer or float tensors). The block mean is exact in both
+    (an integer sum over a power of two); the squared deviations and
+    their sum are exact int64 here, in units of 1/(N*N)^2, and the
+    variance is rounded to float32 once, so the card and the CPU agree
+    at any size. The JAX graph rounds each float32 square and sums in
+    XLA's own order: it agrees bit for bit while those squares and their
+    partial sums are exact in float32 (deviations from the block mean
+    whose squares stay below 2^24 units, e.g. blocks with an integer
+    mean and deviations up to 64), and within a few float32 ulps
+    otherwise."""
+    h, w = y.shape
+    cnt = n * n
+    b = (y.to(torch.int64).reshape(h // n, n, w // n, n)
+         .permute(0, 2, 1, 3))
+    dev = b * cnt - b.sum((-2, -1), keepdim=True)
+    ss = (dev * dev).sum((-2, -1))
+    return (ss.to(torch.float64) / float(cnt ** 3)).to(torch.float32)
+
+
+def ctb_activity(y: torch.Tensor, ctb: int) -> torch.Tensor:
+    """Per-CTB spatial activity: the mean of the float32 8x8 variances
+    inside each CTB (port of svt_hevc_tpu.tpu.analysis.ctb_activity; y
+    padded to CTB multiples). The float32 variances are summed exactly
+    (in float64: at most 42 significant bits) and the mean is rounded to
+    float32 once; the JAX graph sums them in float32 in its own order,
+    which is the same value whenever its partial sums are exact."""
+    v8 = block_variance(y, 8)
+    k = ctb // 8
+    h8, w8 = v8.shape
+    s = v8.to(torch.float64).reshape(h8 // k, k, w8 // k, k).sum((1, 3))
+    return (s / float(k * k)).to(torch.float32)
+
+
+_BINOMIAL5 = tuple(np.float32(v / 16.0) for v in (1.0, 4.0, 6.0, 4.0, 1.0))
+
+
+def _binomial5(p: torch.Tensor) -> torch.Tensor:
+    """Separable 5-tap binomial ([1,4,6,4,1]/16) blur of a float32 plane,
+    edge-replicated: the five weighted rows (then columns) added in the
+    JAX graph's order, one float32 add at a time. The products are exact
+    (a weight is 1, 3 or 1/16 of a power of two times a sample with at
+    most 22 significant bits), so each output is the same float32 on the
+    card, on the CPU and in XLA."""
+    h, w = p.shape
+
+    def taps(e, n, axis):
+        acc = None
+        for i, k in enumerate(_BINOMIAL5):
+            t = e.narrow(axis, i, n) * float(k)
+            acc = t if acc is None else acc + t
+        return acc
+
+    e = torch.cat([p[:1].expand(2, w), p, p[-1:].expand(2, w)], 0)
+    p = taps(e, h, 0)
+    e = torch.cat([p[:, :1].expand(h, 2), p, p[:, -1:].expand(h, 2)], 1)
+    return taps(e, w, 1)
+
+
+def denoise_plane(p: torch.Tensor, maxval: int = 255):
+    """Noise-class-gated denoise of one plane (port of
+    svt_hevc_tpu.tpu.analysis.denoise_plane): the noise level sigma is
+    the mean flat-region residual of a binomial blur, and the plane gets
+    no, weak (one blur) or strong (two blurs) filtering with the
+    correction clamped to +-(3 sigma + 1). Returns (filtered float32
+    plane, float32 sigma as a 0-d tensor).
+
+    Exactness: the blurs are exact at 8 bits (_binomial5); at 10 bits the
+    second blur's last pass rounds, in the same order as the JAX graph's.
+    The residual sum is exact here (an int64 count of 1/256 units) and
+    rounded to float32 once, so the card equals the CPU at any size; the
+    JAX graph sums in float32, which equals it while that sum stays
+    below 2^24 units (small planes or little noise). 3 sigma + 1 is
+    rounded once, as XLA's fused multiply-add does."""
+    yf = p.to(torch.float32)
+    weak = _binomial5(yf)
+    strong = _binomial5(weak)
+    resid = (yf - weak).abs()
+    gx = torch.diff(yf, dim=1, prepend=yf[:, :1]).abs()
+    gy = torch.diff(yf, dim=0, prepend=yf[:1, :]).abs()
+    flat = (gx + gy) < float(np.float32(0.06 * maxval))
+    units = torch.where(flat, resid * 256.0, 0.0).to(torch.int64).sum()
+    num = (units.to(torch.float64) / 256.0).to(torch.float32)
+    den = flat.sum().to(torch.float32) + 1.0
+    sigma = num / den
+    thr = (3.0 * sigma.to(torch.float64) + 1.0).to(torch.float32)
+
+    def clamped(f):
+        return yf + torch.maximum(torch.minimum(f - yf, thr), -thr)
+
+    # the noise-class thresholds as float32 values, as JAX compares them
+    lo = float(np.float32(0.004 * maxval))
+    hi = float(np.float32(0.012 * maxval))
+    out = torch.where(sigma < lo, yf,
+                      torch.where(sigma < hi, clamped(weak),
+                                  clamped(strong)))
+    return torch.round(out).clamp(0, maxval), sigma
+
+
+def analyze_frame(y: torch.Tensor) -> dict:
+    """Full analysis of one luma plane (H, W multiples of 64; port of
+    svt_hevc_tpu.tpu.analysis.analyze_frame): 2:1 and 4:1 decimations,
+    the 8/16/32 block variances and the open-loop intra search's best
+    mode and float32 cost per 4/8/16/32 block."""
+    yf = y.to(torch.float32)
+    out = {"decim2": yf[::2, ::2], "decim4": yf[::4, ::4],
+           "var8": block_variance(y, 8), "var16": block_variance(y, 16),
+           "var32": block_variance(y, 32)}
+    for n in (4, 8, 16, 32):
+        out[f"mode{n}"], out[f"cost{n}"] = intra_search_size(yf, n)
+    return out
+
+
+def ois_packed(y: torch.Tensor) -> torch.Tensor:
+    """The open-loop intra search maps for n in 4/8/16/32 in ONE int32
+    tensor (mode, then the cost rounded half to even, per size): one
+    download for the host path (port of
+    svt_hevc_tpu.tpu.analysis.ois_packed)."""
+    yf = y.to(torch.float32)
+    flats = []
+    for n in (4, 8, 16, 32):
+        mode, cost = intra_search_size(yf, n)
+        flats.append(mode.reshape(-1))
+        flats.append(torch.round(cost).reshape(-1).to(torch.int32))
+    return torch.cat(flats)

@@ -1,13 +1,18 @@
 """Encoder pipeline on the card: frames -> Annex-B HEVC byte stream.
 
-Port of svt_hevc_tpu/pipeline/encoder.py for the slice this package
-covers: CQP, and VBR with or without lookahead; low-delay P (IPPP, and
-its hierarchical form), low-delay B, and random access (hierarchical B,
-closed GOP with IDR refresh or open GOP with CRA refresh and RASL
-pictures; CQP, as in the JAX package); one reference per list, 8-bit and
-10-bit 4:2:0, one tile, the fused presets M6-M11 (M8-M9 put intra CUs in
-inter pictures); speed control (a dynamic preset) and checkpoint /
-restore of the streaming state. I pictures take
+Port of svt_hevc_tpu/pipeline/encoder.py: CQP, and VBR with or without
+lookahead; low-delay P (IPPP, and its hierarchical form), low-delay B,
+and random access (hierarchical B, closed GOP with IDR refresh or open
+GOP with CRA refresh and RASL pictures; CQP, as in the JAX package);
+8-bit and 10-bit, 4:2:0, 4:2:2 and 4:4:4; tiles (with motion-constrained
+tile sets and one slice per tile); presets M0-M11; adaptive QP
+(sharpness, bit-rate reduction, segment overrides); denoising;
+constrained intra; speed control (a dynamic preset) and checkpoint /
+restore of the streaming state.
+
+Two paths, chosen per picture as in the JAX package. The fused device
+paths (4:2:0, one tile, no RD, no QP map, OIS presets; P and B pictures
+also not under constrained intra): I pictures take
 gpu.encode.fast_i_fused_dev, P pictures gpu.me.hme_search then
 gpu.encode.fast_p_fused_dev, B pictures one hme_search per distinct
 reference then gpu.encode.fast_b_fused_dev; the host walk and the native
@@ -15,12 +20,17 @@ emitter write the syntax. Reconstructions stay on the device as later
 pictures' references (the device DPB), each picture's decided motion
 stays on the device as a later P picture's TMVP source, and in
 low-delay CQP structures a picture's download and host walk overlap the
-next picture's device work (one frame deep); random access pictures, and
+next picture's device work (one frame deep). Every other picture takes
+the host path: the numpy CTU coder (core/ctu.py, core/rdo.py) in two
+passes over the tiles, fed by device helpers — the motion seed from
+hme_search (kernel K1), the open-loop intra search maps
+(gpu.analysis.ois_packed) and the per-CTB activity of the QP map
+(gpu.analysis.ctb_activity). Denoising (gpu.analysis.denoise_plane)
+runs before either path. Random access pictures, host-path pictures, and
 every picture under VBR or speed control, are encoded one at a time, as
 in the JAX package.
 
-A configuration outside the slice raises NotImplementedError; there is
-no host CTU path to fall back to.
+Mesh picture parallelism (several devices) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,16 +47,44 @@ import torch
 from ..bitstream import sei
 from ..bitstream.cabac import CabacEncoder
 from ..bitstream.contexts import init_contexts
-from ..bitstream.headers import (write_pps, write_slice_header, write_sps,
-                                 write_vps)
+from ..bitstream.headers import (tile_grid, write_pps, write_slice_header,
+                                 write_sps, write_vps)
 from ..bitstream.nal import NalUnitType, wrap_nal
-from ..bitstream.recorder import CabacRecorder
+from ..bitstream.recorder import CabacRecorder, NullCoder
 from ..config import EncoderConfig
-from ..core.ctu import PictureState
-from ..core.sao import encode_sao_ctb
+from ..core.ctu import CtuEncoder, PictureState
+from ..core.deblock import deblock_picture
+from ..core.rdo import RdSearch, lambda_sse
+from ..core.sao import apply_sao, derive_sao_params, encode_sao_ctb
 from ..io.yuv import Frame
 from ..native import cabac_encode_ops
 from ..preset import derive_preset
+
+
+def _apply_segment_ov(base: np.ndarray, sov: np.ndarray,
+                      lo: int, hi: int) -> np.ndarray:
+    """Merge per-CTB segment overrides into a QP map: a direct QP wins
+    over a delta QP, which wins over a deblock-density delta; all are
+    clipped to [lo, hi]."""
+    from ..config import (SEG_DENSITY_DEBLOCK_OV, SEG_DENSITY_QP_OV,
+                          SEG_QP_OV_DELTA, SEG_QP_OV_DIRECT)
+    sov = np.asarray(sov)
+    if sov.shape[:2] != base.shape:
+        raise ValueError(f"segment_ov grid {sov.shape[:2]} != CTB grid "
+                         f"{base.shape}")
+    flags = sov[..., 0].astype(np.int32)
+    qp_ov = sov[..., 1].astype(np.int32)
+    db_ov = sov[..., 2].astype(np.int32)
+    out = base.astype(np.int32).copy()
+    direct = ((flags & SEG_DENSITY_QP_OV) != 0) & \
+             ((flags & SEG_QP_OV_DIRECT) != 0)
+    delta = ((flags & SEG_DENSITY_QP_OV) != 0) & \
+            ((flags & SEG_QP_OV_DELTA) != 0) & ~direct
+    dbl = ((flags & SEG_DENSITY_DEBLOCK_OV) != 0) & ~direct & ~delta
+    out = np.where(direct, qp_ov, out)
+    out = np.where(delta, out + np.clip(qp_ov, -25, 25), out)
+    out = np.where(dbl, out + np.clip(db_ov, -25, 25), out)
+    return np.clip(out, lo, hi)
 
 
 def pad_plane(plane: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -81,33 +119,26 @@ def finalize_cabac(rec: CabacRecorder, init_ctx: list[int]) -> bytes:
     return enc.data
 
 
+def dev_me_field(src_y: np.ndarray, ref_y: np.ndarray,
+                 device) -> np.ndarray:
+    """Per-16x16-block quarter-pel MV field of gpu.me.hme_search (kernel
+    K1) on `device`, both planes edge-padded to the 64-aligned grid: the
+    host path's motion seed where the picture has no device context (the
+    counterpart of svt_hevc_tpu.pipeline.encoder.tpu_me_field). Returns
+    the (H64//16, W64//16, 2) int32 [mvx, mvy] field on the host."""
+    from ..gpu.me import hme_search
+    h, w = src_y.shape
+    hh, ww = (h + 63) // 64 * 64, (w + 63) // 64 * 64
+    sp = torch.from_numpy(pad_plane(src_y, ww, hh)).to(device)
+    rp = torch.from_numpy(pad_plane(ref_y, ww, hh)).to(device)
+    return hme_search(sp, rp)[0].cpu().numpy()
+
+
 def slice_unsupported(cfg: EncoderConfig) -> str | None:
-    """Why cfg lies outside the ported slice (naming the later slice that
-    brings it), or None when this package encodes it."""
-    feat = derive_preset(cfg.enc_mode)
-    checks = (
-        (cfg.tile_columns * cfg.tile_rows != 1
-         or cfg.constrained_motion_tiles,
-         "tiles come with the multi-device slice"),
-        (cfg.chroma_format != 1,
-         "4:2:2 / 4:4:4 come with the device-helpers slice (host path)"),
-        (feat.rd_mode_decision or not feat.ois_intra
-         or feat.p_min_intra_log2 < 5,
-         f"preset M{cfg.enc_mode} uses the RD host path (M0-M5), which "
-         "comes with the device-helpers slice"),
-        (cfg.enable_denoise, "denoising comes with the device-helpers slice"),
-        (cfg.adaptive_qp,
-         "adaptive QP (QPM / segment overrides) comes with the "
-         "device-helpers slice"),
-        (cfg.constrained_intra,
-         "constrained intra runs on the host path, which comes with the "
-         "device-helpers slice"),
-        (cfg.mesh_pictures,
-         "mesh picture parallelism comes with the multi-device slice"),
-    )
-    for bad, why in checks:
-        if bad:
-            return why
+    """Why cfg lies outside the port (naming the later slice that brings
+    it), or None when this package encodes it."""
+    if cfg.mesh_pictures:
+        return "mesh picture parallelism comes with the multi-device slice"
     return None
 
 
@@ -202,7 +233,7 @@ class EncodedAu:
 
 class Encoder:
     """HEVC encoder (CQP or VBR; low-delay P or B, random access) whose
-    pixel stages run on the card.
+    pixel stages and device helpers run on the card.
 
     device: None (the default) or "cuda" runs on the card and raises
     where there is no CUDA device; "cpu" runs every stage with the
@@ -240,6 +271,11 @@ class Encoder:
         # streaming state a checkpoint() carries across: the scene-cut
         # context, the per-layer references and the rate-control state
         self._ckpt_prev_y = None
+        self._prev_src_y = None      # previous padded source luma (the
+        #                              QPM stationary-edge context)
+        # the pipelined picture not yet final (PendingPicture): a host-path
+        # picture finishes it first
+        self._inflight = None
         self._ckpt_ll_last: dict = {}
         self._ckpt_rc_state: dict | None = None
         self._resuming = False
@@ -251,8 +287,8 @@ class Encoder:
         """Snapshot of the streaming state after a completed
         encode_pictures() segment: frame counter, POC base, the reference
         planes per temporal layer (the DPB), the scene-cut context, the
-        rate-control state (deep-copied) and the TMVP motion, host and
-        device. Plain numpy and Python data, picklable and device-free,
+        QPM's previous source luma, the rate-control state (deep-copied)
+        and the TMVP motion, host and device. Plain numpy and Python data, picklable and device-free,
         in the JAX package's layout: a fresh Encoder restored from it (on
         any device, and from a JAX package checkpoint too) continues the
         stream byte for byte."""
@@ -269,6 +305,11 @@ class Encoder:
                 for layer, (idx, planes, poc) in self._ckpt_ll_last.items()},
             "prev_y": (None if self._ckpt_prev_y is None
                        else np.asarray(self._ckpt_prev_y)),
+            # the QPM content classes' temporal context (the JAX
+            # package's checkpoint leaves it out; restoring one gives
+            # None, as there)
+            "prev_src_y": (None if self._prev_src_y is None
+                           else np.array(self._prev_src_y)),
             "rc": rc_state,
             "ref_planes": (None if self._ref_planes is None
                            else tuple(np.asarray(p)
@@ -293,6 +334,7 @@ class Encoder:
             layer: (idx, tuple(planes), poc)
             for layer, (idx, planes, poc) in ckpt["ll_last"].items()}
         self._ckpt_prev_y = ckpt["prev_y"]
+        self._prev_src_y = ckpt.get("prev_src_y")
         self._ckpt_rc_state = copy.deepcopy(ckpt.get("rc"))
         self._ref_planes = (None if ckpt["ref_planes"] is None
                             else tuple(ckpt["ref_planes"]))
@@ -311,6 +353,108 @@ class Encoder:
         rate; enc_mode then floats in [cfg.enc_mode, 11]."""
         self._speed_target_fps = target_fps
         self._dyn_enc_mode = self.cfg.enc_mode
+
+    def _flush_inflight(self) -> None:
+        """Finish the pipelined picture in flight (a host-path picture
+        needs its final motion field as the TMVP source)."""
+        if self._inflight is not None:
+            self._inflight.finish()
+            self._inflight = None
+
+    def _ois_maps(self, y_plane) -> dict:
+        """The open-loop intra search on the encoder's device: {n:
+        (mode_map, cost_map)} numpy int32 maps for n in 4/8/16/32, fetched
+        in one download (gpu.analysis.ois_packed). y_plane: a host plane
+        (padded to the 64-aligned grid and uploaded here) or the 64-aligned
+        device plane the frame's upload already made."""
+        from ..gpu.analysis import ois_packed
+        from ..gpu.encode import unpack
+        if isinstance(y_plane, np.ndarray):
+            h, w = y_plane.shape
+            hh, ww = (h + 63) // 64 * 64, (w + 63) // 64 * 64
+            dev = torch.from_numpy(pad_plane(y_plane, ww, hh)).to(
+                self.device)
+        else:
+            hh, ww = y_plane.shape
+            dev = y_plane
+        specs = []
+        for n in (4, 8, 16, 32):
+            specs.append((f"mode{n}", (hh // n, ww // n), np.int32))
+            specs.append((f"cost{n}", (hh // n, ww // n), np.int32))
+        got = unpack(ois_packed(dev).cpu().numpy(), specs)
+        return {n: (got[f"mode{n}"], got[f"cost{n}"])
+                for n in (4, 8, 16, 32)}
+
+    def _denoise(self, frame: Frame) -> Frame:
+        """Source denoising on the encoder's device
+        (gpu.analysis.denoise_plane): the luma's noise class decides; a
+        clean luma returns the frame as it is, else all three planes are
+        filtered (a new Frame of the three planes only, as in the JAX
+        package)."""
+        from ..gpu import encode as genc
+        from ..gpu.analysis import denoise_plane
+        maxval = (1 << self.cfg.bit_depth) - 1
+
+        def up(p):
+            p = np.asarray(p)
+            if p.dtype != np.uint8:
+                p = p.astype(np.int32)
+            return torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
+
+        with genc.stage("pre.denoise"):
+            y, sigma = denoise_plane(up(frame.y), maxval=maxval)
+            dt = frame.y.dtype
+            if float(sigma) < 0.004 * maxval:
+                return frame
+            cb, _ = denoise_plane(up(frame.cb), maxval=maxval)
+            cr, _ = denoise_plane(up(frame.cr), maxval=maxval)
+            return Frame(y=y.cpu().numpy().astype(dt),
+                         cb=cb.cpu().numpy().astype(dt),
+                         cr=cr.cpu().numpy().astype(dt))
+
+    def _derive_qp_map(self, y_plane: np.ndarray, base_qp: int,
+                       frame=None) -> np.ndarray:
+        """Per-CTB QP from the spatial activity (gpu.analysis.ctb_activity
+        on the encoder's device): textured CTBs take a higher QP, and
+        under improve_sharpness smooth ones a lower QP; with the frame at
+        hand the content classes (grass / skin / dark / stationary edge,
+        pipeline/content_class.py) refine the map, else dark CTBs take one
+        QP less; bit_rate_reduction biases the map upward."""
+        from ..gpu.analysis import ctb_activity
+        cfg = self.cfg
+        ctb = cfg.ctb_size
+        hh = (y_plane.shape[0] + ctb - 1) // ctb * ctb
+        ww = (y_plane.shape[1] + ctb - 1) // ctb * ctb
+        yp = pad_plane(y_plane.astype(np.int32), ww, hh)
+        act = ctb_activity(torch.from_numpy(yp).to(self.device),
+                           ctb).cpu().numpy()
+        act = np.maximum(act, 1.0)
+        gmean = float(np.exp(np.log(act).mean()))
+        delta = np.round(1.5 * np.log2(act / gmean))
+        lo = -3 if cfg.improve_sharpness else 0
+        delta = np.clip(delta, lo, 3)
+        if cfg.improve_sharpness and frame is not None:
+            from .content_class import classify_ctbs, qp_class_delta
+            cwc = ww * frame.cb.shape[1] // y_plane.shape[1]
+            chc = hh * frame.cb.shape[0] // y_plane.shape[0]
+            classes = classify_ctbs(
+                yp,
+                pad_plane(np.asarray(frame.cb, np.int32), cwc, chc),
+                pad_plane(np.asarray(frame.cr, np.int32), cwc, chc),
+                ctb, activity=act, prev_y=self._prev_src_y,
+                bit_depth=cfg.bit_depth)
+            self._prev_src_y = yp
+            self.last_classes = classes
+            delta = delta + qp_class_delta(classes)
+        elif cfg.improve_sharpness:
+            # dark-area protection: banding in dark regions is highly
+            # visible, so spend more bits there
+            means = yp.reshape(hh // ctb, ctb, ww // ctb, ctb).mean((1, 3))
+            delta = np.where(means < 0.2 * (1 << cfg.bit_depth),
+                             delta - 1, delta)
+        if cfg.bit_rate_reduction:
+            delta += 1
+        return np.clip(base_qp + delta, 1, 51).astype(np.int32)
 
     def _col_for(self, col_poc):
         """Collocated motion dict for TMVP, or None. A missing entry for a
@@ -367,6 +511,8 @@ class Encoder:
                 (md[6], md[7]), md[8], md[9]))
         if cfg.use_recovery_point_sei:
             msgs.append(sei.write_recovery_point(0))
+        if cfg.constrained_motion_tiles:
+            msgs.append(sei.write_temporal_mcts())
         out += wrap_nal(NalUnitType.PREFIX_SEI_NUT, sei.sei_rbsp(msgs))
         return out
 
@@ -386,32 +532,38 @@ class Encoder:
         self._au_since_bp += 1
         return wrap_nal(NalUnitType.PREFIX_SEI_NUT, sei.sei_rbsp(msgs))
 
-    def encode_frame(self, frame: Frame, *, is_idr: bool | None = None,
-                     poc: int = 0, qp: int | None = None,
-                     slice_type: int | None = None, refs_l0=None,
-                     refs_l1=None, non_ref: bool = False, retain_pocs=None,
+    def encode_frame(self, frame: Frame, *, split_policy=None,
+                     part_nxn_policy=None, rd: bool | None = None,
+                     is_idr: bool | None = None, poc: int = 0,
+                     qp: int | None = None, slice_type: int | None = None,
+                     refs_l0=None, refs_l1=None,
+                     qp_map: np.ndarray | None = None,
+                     non_ref: bool = False, retain_pocs=None,
                      pipelined: bool = False, nal_type_override=None):
         """Encode one picture: slice_type 2 (I: an IDR when is_idr, else a
         CRA that keeps the DPB), 1 (P) or 0 (B); None derives I or P from
-        is_idr. refs_l0/refs_l1: [(planes, poc)], one reference per list
-        (L0 None: the previous picture; a B picture without L1 takes L1 =
-        L0, low-delay B). non_ref: a picture no other picture references
-        (kept out of the device DPB and the TMVP caches). retain_pocs:
-        POCs that future pictures still reference, signalled in the RPS
-        with used_by_curr_pic=0. nal_type_override: the NAL unit type
-        (CRA, RASL) where the caller sets it. Returns an EncodedPicture,
-        or a PendingPicture when pipelined."""
+        is_idr. refs_l0/refs_l1: [(planes, poc)] per list (L0 None: the
+        previous picture; a B picture without L1 takes L1 = L0, low-delay
+        B). rd: full RD mode decision (None: the preset's). split_policy /
+        part_nxn_policy: test policies of the CTU coder. qp_map: explicit
+        per-CTB QP grid (overrides the derived QPM map). non_ref: a
+        picture no other picture references (kept out of the device DPB
+        and the TMVP caches). retain_pocs: POCs that future pictures still
+        reference, signalled in the RPS with used_by_curr_pic=0.
+        nal_type_override: the NAL unit type (CRA, RASL) where the caller
+        sets it. Returns an EncodedPicture, or a PendingPicture when
+        pipelined and the picture took a fused device path."""
         from ..gpu import encode as genc
         from ..gpu.me import hme_search
         from .fast_path import run_fast_b, run_fast_i, run_fast_p
 
         cfg = self.cfg
-        if frame.segment_ov is not None:
-            raise NotImplementedError(
-                "per-CTB segment overrides come with the device-helpers "
-                "slice")
+        if cfg.enable_denoise:
+            frame = self._denoise(frame)
         feat = derive_preset(self._dyn_enc_mode if self._dyn_enc_mode
                              is not None else cfg.enc_mode)
+        if rd is None:
+            rd = feat.rd_mode_decision
         if is_idr is None:
             is_idr = self._ref_planes is None and refs_l0 is None
         if qp is None:
@@ -422,11 +574,8 @@ class Encoder:
             refs_l0 = [(self._ref_planes, self._ref_poc)]
         if slice_type == 0 and not refs_l1:
             refs_l1 = list(refs_l0)          # low-delay B: L1 = L0
-        if slice_type != 2 and (len(refs_l0) != 1
-                                or (slice_type == 0 and len(refs_l1) != 1)):
-            raise NotImplementedError(
-                "more than one reference per list is not ported")
         init_type = {2: 0, 1: 1, 0: 2}[slice_type]
+        kind = {2: "i", 1: "p", 0: "b"}[slice_type]
         # TMVP collocated picture: list-0 ref 0 (collocated_from_l0 is
         # signalled 1 for B slices)
         col_poc = (refs_l0[0][1]
@@ -442,85 +591,186 @@ class Encoder:
         ctb = cfg.ctb_size
         n_ctb_x = (cw + ctb - 1) // ctb
         n_ctb_y = (ch + ctb - 1) // ctb
-        order = [(cx * ctb, cy * ctb) for cy in range(n_ctb_y)
-                 for cx in range(n_ctb_x)]
-        last_xy = order[-1]
+        # tile partitioning, CTUs in tile-scan order
+        col_bd, row_bd = tile_grid(n_ctb_x, n_ctb_y,
+                                   cfg.tile_columns, cfg.tile_rows)
+        tiles = []       # [(ctb_order, left_col, top_row, pixel_rect)]
+        for tr in range(cfg.tile_rows):
+            for tc in range(cfg.tile_columns):
+                order = [(cx * ctb, cy * ctb)
+                         for cy in range(row_bd[tr], row_bd[tr + 1])
+                         for cx in range(col_bd[tc], col_bd[tc + 1])]
+                rect = (col_bd[tc] * ctb, row_bd[tr] * ctb,
+                        min(col_bd[tc + 1] * ctb, cw),
+                        min(row_bd[tr + 1] * ctb, ch))
+                tiles.append((order, col_bd[tc], row_bd[tr], rect))
+        last_xy = tiles[-1][0][-1]
+        mcts = cfg.constrained_motion_tiles
+        tile_edges_x = [min(col_bd[i] * ctb, cw)
+                        for i in range(1, cfg.tile_columns)]
+        tile_edges_y = [min(row_bd[i] * ctb, ch)
+                        for i in range(1, cfg.tile_rows)]
 
-        st = PictureState(cw, ch, qp, cfg.ctb_log2, cfg.bit_depth,
-                          chroma_format=cfg.chroma_format)
-        st.constrained_intra = cfg.constrained_intra
-        st.max_tt_depth_inter = 2     # matches the SPS (write_sps)
-        if not is_idr and refs_l0:      # a CRA has no reference lists
-            st.slice_type = slice_type
-            st.ref_planes = [[r[0] for r in refs_l0],
-                             [r[0] for r in (refs_l1 or [])]]
-            st.ref_pocs = [[r[1] for r in refs_l0],
-                           [r[1] for r in (refs_l1 or [])]]
-            st.poc = poc
+        # per-CTB QP map: an explicit map, else the QPM map when a QPM tool
+        # asks for it; segment overrides go over either (or a flat map);
+        # under adaptive QP without either, a flat map (cu_qp_delta is in
+        # the PPS for the whole stream, so every picture codes deltas)
+        if qp_map is None and (cfg.improve_sharpness
+                               or cfg.bit_rate_reduction):
+            with genc.stage(f"{kind}.qp_map"):
+                qp_map = self._derive_qp_map(np.asarray(frame.y), qp,
+                                             frame=frame)
+        if frame.segment_ov is not None:
+            if not cfg.segment_ov_enabled:
+                raise ValueError("Frame.segment_ov requires "
+                                 "segment_ov_enabled=True in the config")
+            base = (qp_map if qp_map is not None
+                    else np.full((n_ctb_y, n_ctb_x), qp, np.int32))
+            qp_map = _apply_segment_ov(base, frame.segment_ov,
+                                       cfg.min_qp_allowed,
+                                       cfg.max_qp_allowed)
+        if qp_map is None and cfg.adaptive_qp:
+            qp_map = np.full((n_ctb_y, n_ctb_x), qp, np.int32)
 
-        # ---- device context: ship the source once, keep the reference
-        # planes device-resident between frames
+        def new_state():
+            s = PictureState(cw, ch, qp, cfg.ctb_log2, cfg.bit_depth,
+                             chroma_format=cfg.chroma_format)
+            s.constrained_intra = cfg.constrained_intra
+            s.max_tt_depth_inter = 2     # matches the SPS (write_sps)
+            if mcts:
+                s.filter_across_tiles = False
+                s.tile_edges_x = tile_edges_x
+                s.tile_edges_y = tile_edges_y
+            if qp_map is not None:
+                s.enable_cu_qp_delta(qp_map)
+            if not is_idr and refs_l0:      # a CRA has no reference lists
+                s.slice_type = slice_type
+                s.ref_planes = [[r[0] for r in refs_l0],
+                                [r[0] for r in (refs_l1 or [])]]
+                s.ref_pocs = [[r[1] for r in refs_l0],
+                              [r[1] for r in (refs_l1 or [])]]
+                s.poc = poc
+            return s
+
+        # ---- device context (4:2:0, one tile, no test policies): ship the
+        # source once and keep the reference planes device-resident
+        # between frames; every device stage reads these tensors
+        fast_capable = (cfg.chroma_format == 1
+                        and cfg.bit_depth in (8, 10)
+                        and len(tiles) == 1 and not mcts
+                        and split_policy is None
+                        and part_nxn_policy is None)
         w64, h64 = (cw + 63) // 64 * 64, (ch + 63) // 64 * 64
         dt = np.uint8 if cfg.bit_depth == 8 else np.uint16
-        kind = {2: "i", 1: "p", 0: "b"}[slice_type]
+        src_dev = ref_dev = ref1_dev = None
+        single_ref = (not is_idr and refs_l0 is not None
+                      and len(refs_l0) == 1 and not refs_l1)
+        b_pair = (not is_idr and slice_type == 0
+                  and refs_l0 is not None and len(refs_l0) == 1
+                  and refs_l1 is not None and len(refs_l1) == 1)
+        if fast_capable:
+            def dev_ref(entry):
+                """A reference's device planes: the device DPB's, else (an
+                evicted reference) uploaded again from its host planes."""
+                got = self._dev_dpb.get((entry[1], w64, h64))
+                if got is None:
+                    rp = entry[0]
+                    got = genc.prep_planes(rp[0].astype(dt),
+                                           rp[1].astype(dt),
+                                           rp[2].astype(dt), w64, h64,
+                                           self.device)
+                return got
 
-        def dev_ref(entry):
-            """A reference's device planes: the device DPB's, else (an
-            evicted reference) uploaded again from its host planes."""
-            got = self._dev_dpb.get((entry[1], w64, h64))
-            if got is None:
-                rp = entry[0]
-                got = genc.prep_planes(rp[0].astype(dt), rp[1].astype(dt),
-                                       rp[2].astype(dt), w64, h64,
-                                       self.device)
-            return got
+            with genc.stage(f"{kind}.upload"):
+                src_dev = genc.prep_planes(frame.y, frame.cb, frame.cr,
+                                           w64, h64, self.device)
+            if single_ref:
+                ref_dev = dev_ref(refs_l0[0])
+            elif b_pair:
+                ref_dev = dev_ref(refs_l0[0])
+                ref1_dev = (ref_dev if refs_l1[0][1] == refs_l0[0][1]
+                            else dev_ref(refs_l1[0]))
 
-        with genc.stage(f"{kind}.upload"):
-            src_dev = genc.prep_planes(frame.y, frame.cb, frame.cr, w64, h64,
-                                       self.device)
-        if slice_type == 2:
-            packed, rec_dev, mot_dev, lv_dev = run_fast_i(
-                cfg, feat, st, qp, src_dev)
-        elif slice_type == 0:
-            ref_dev = dev_ref(refs_l0[0])
-            ref1_dev = (ref_dev if refs_l1[0][1] == refs_l0[0][1]
-                        else dev_ref(refs_l1[0]))
-            with genc.stage("b.hme_search"):
-                mv_dev = hme_search(src_dev[0], ref_dev[0])[0]
-            if ref1_dev is ref_dev:
-                mv1_dev = mv_dev
+        # ---- the fused device paths: no RD, no QP map, OIS presets, and
+        # (P/B) no constrained intra; everything else takes the host path
+        use_fast = (fast_capable and slice_type == 1 and not rd
+                    and single_ref and qp_map is None and feat.ois_intra
+                    and not cfg.constrained_intra)
+        use_fast_b = (fast_capable and b_pair and not rd
+                      and qp_map is None and feat.ois_intra
+                      and not cfg.constrained_intra)
+        use_fast_i = (fast_capable and slice_type == 2 and not rd
+                      and qp_map is None and feat.ois_intra)
+
+        me_seed = mv_dev = mv1_dev = None
+        if not is_idr and slice_type != 2:
+            if ref_dev is not None:
+                with genc.stage(f"{kind}.hme_search"):
+                    mv_dev = hme_search(src_dev[0], ref_dev[0])[0]
+                if ref1_dev is ref_dev:
+                    mv1_dev = mv_dev
+                elif ref1_dev is not None:
+                    with genc.stage(f"{kind}.hme_search"):
+                        mv1_dev = hme_search(src_dev[0], ref1_dev[0])[0]
+                if not (use_fast or use_fast_b):
+                    me_seed = mv_dev.cpu().numpy()
             else:
-                with genc.stage("b.hme_search"):
-                    mv1_dev = hme_search(src_dev[0], ref1_dev[0])[0]
-            packed, rec_dev, mot_dev, lv_dev = run_fast_b(
-                cfg, feat, st, qp, mv_dev, mv1_dev, src_dev, ref_dev,
-                ref1_dev)
+                with genc.stage(f"{kind}.dev_me_field"):
+                    me_seed = dev_me_field(src[0], refs_l0[0][0][0],
+                                           self.device)
+
+        # open-loop intra search maps for the host path's MD shortlist at
+        # OIS presets (the fused paths run it inside)
+        ois = None
+        if feat.ois_intra and not (use_fast or use_fast_i or use_fast_b):
+            with genc.stage(f"{kind}.ois_maps"):
+                ois = self._ois_maps(src[0] if src_dev is None
+                                     else src_dev[0])
+
+        rec_dev = packed = lv_dev = substreams = None
+        st = None
+        if use_fast or use_fast_i or use_fast_b:
+            st = new_state()
+            if use_fast_i:
+                packed, rec_dev, mot_dev, lv_dev = run_fast_i(
+                    cfg, feat, st, qp, src_dev)
+            elif use_fast_b:
+                packed, rec_dev, mot_dev, lv_dev = run_fast_b(
+                    cfg, feat, st, qp, mv_dev, mv1_dev, src_dev, ref_dev,
+                    ref1_dev)
+            else:
+                # device-resident TMVP collocated motion of the L0
+                # reference + its POC distances (8.5.3.2.8 tb/td)
+                col_ent = (self._dev_motion.get((col_poc, w64, h64))
+                           if col_poc is not None else None)
+                col_dev = None
+                tb = td = 1
+                if col_ent is not None:
+                    col_dev = (col_ent[0], col_ent[1])
+                    tb = poc - refs_l0[0][1]
+                    td = (col_poc - col_ent[2]
+                          if col_ent[2] is not None else tb)
+                packed, rec_dev, mot_dev, lv_dev = run_fast_p(
+                    cfg, feat, st, qp, mv_dev, src_dev, ref_dev, col_dev,
+                    tb, td)
+            if not non_ref:
+                if is_idr:
+                    self._dev_motion.clear()
+                self._dev_motion[(poc, w64, h64)] = (
+                    mot_dev[0], mot_dev[1],
+                    refs_l0[0][1] if (refs_l0 and not is_idr
+                                      and slice_type != 2) else None)
+                while len(self._dev_motion) > self._dev_motion_cap:
+                    del self._dev_motion[next(iter(self._dev_motion))]
         else:
-            ref_dev = dev_ref(refs_l0[0])
-            with genc.stage("p.hme_search"):
-                mv_dev = hme_search(src_dev[0], ref_dev[0])[0]
-            # device-resident TMVP collocated motion of the L0 reference
-            # + its POC distances (8.5.3.2.8 tb/td)
-            col_ent = (self._dev_motion.get((col_poc, w64, h64))
-                       if col_poc is not None else None)
-            col_dev = None
-            tb = td = 1
-            if col_ent is not None:
-                col_dev = (col_ent[0], col_ent[1])
-                tb = poc - refs_l0[0][1]
-                td = (col_poc - col_ent[2]
-                      if col_ent[2] is not None else tb)
-            packed, rec_dev, mot_dev, lv_dev = run_fast_p(
-                cfg, feat, st, qp, mv_dev, src_dev, ref_dev, col_dev, tb, td)
-        if not non_ref:
-            if is_idr:
-                self._dev_motion.clear()
-            self._dev_motion[(poc, w64, h64)] = (
-                mot_dev[0], mot_dev[1],
-                refs_l0[0][1] if (refs_l0 and not is_idr
-                                  and slice_type != 2) else None)
-            while len(self._dev_motion) > self._dev_motion_cap:
-                del self._dev_motion[next(iter(self._dev_motion))]
+            # the host path: the previous pipelined picture must be final
+            # first (its motion field is this picture's TMVP source)
+            self._flush_inflight()
+            st, substreams = self._encode_host(
+                new_state, src, tiles, last_xy, qp, init_type, rd, feat,
+                me_seed, ois, col_poc, split_policy, part_nxn_policy,
+                kind)
+        slice_per_tile = bool(cfg.tile_slice_mode) and len(tiles) > 1
 
         all_ref_pocs = ({r[1] for r in (refs_l0 or [])}
                         | {r[1] for r in (refs_l1 or [])})
@@ -537,34 +787,56 @@ class Encoder:
                     else NalUnitType.TRAIL_R)
         irap = is_idr or nal_type == NalUnitType.CRA_NUT
 
-        # ---- DPB update at dispatch time: the device recon becomes the
-        # next reference directly; host views download lazily
+        # ---- DPB update at dispatch time: a fused picture's device recon
+        # becomes the next reference directly (host views download
+        # lazily); a host-path picture's planes are uploaded to the device
+        # DPB too, so a following fused picture needs no re-upload
         hc, wc = frame.cb.shape
-        if is_idr:
-            self._dev_dpb.clear()
-        if not non_ref:
-            self._dev_dpb[(poc, w64, h64)] = rec_dev
-            while len(self._dev_dpb) > 6:
-                del self._dev_dpb[next(iter(self._dev_dpb))]
-        lazy = _LazyPlanes(rec_dev, cw, ch)
-        self._ref_planes = lazy
-        self._ref_poc = poc
-        recon = _LazyFrame(lazy, frame.width, frame.height, wc, hc, dt)
+        if rec_dev is not None:
+            if is_idr:
+                self._dev_dpb.clear()
+            if not non_ref:
+                self._dev_dpb[(poc, w64, h64)] = rec_dev
+                while len(self._dev_dpb) > 6:
+                    del self._dev_dpb[next(iter(self._dev_dpb))]
+            lazy = _LazyPlanes(rec_dev, cw, ch)
+            self._ref_planes = lazy
+            self._ref_poc = poc
+            recon = _LazyFrame(lazy, frame.width, frame.height, wc, hc, dt)
+        else:
+            self._ref_planes = [p.copy() for p in st.planes]
+            self._ref_poc = poc
+            if fast_capable and not non_ref:
+                if is_idr:
+                    self._dev_dpb.clear()
+                with genc.stage(f"{kind}.dpb_upload"):
+                    self._dev_dpb[(poc, w64, h64)] = genc.prep_planes(
+                        st.planes[0].astype(dt), st.planes[1].astype(dt),
+                        st.planes[2].astype(dt), w64, h64, self.device)
+                while len(self._dev_dpb) > 6:
+                    del self._dev_dpb[next(iter(self._dev_dpb))]
+            recon = Frame(
+                y=st.planes[0][:frame.height, :frame.width].astype(dt),
+                cb=st.planes[1][:hc, :wc].astype(dt),
+                cr=st.planes[2][:hc, :wc].astype(dt))
         ref_planes = self._ref_planes
 
         def _complete() -> EncodedPicture:
-            # fetch the packed device buffer, walk, CABAC. The collocated
-            # motion binds HERE: the previous frame's walk has finished by
-            # completion order.
-            st.col = self._col_for(col_poc)
-            from .fast_path import complete_fast
-            with genc.stage(f"{kind}.download"):
-                maps, sao_np = complete_fast(cfg, st, packed,
-                                             b_form=slice_type == 0,
-                                             lv_dev=lv_dev)
-            with genc.stage(f"{kind}.host_emit"):
-                substr = self._encode_fast(st, src, maps, sao_np, qp, feat,
-                                           order, last_xy, init_type)
+            substr = substreams
+            if substr is None:
+                # a fused picture: fetch the packed device buffer, walk,
+                # CABAC. The collocated motion binds HERE: the previous
+                # frame's walk has finished by completion order.
+                st.col = self._col_for(col_poc)
+                from .fast_path import complete_fast
+                with genc.stage(f"{kind}.download"):
+                    maps, sao_np = complete_fast(cfg, st, packed,
+                                                 b_form=use_fast_b,
+                                                 lv_dev=lv_dev)
+                with genc.stage(f"{kind}.host_emit"):
+                    substr = self._encode_fast(
+                        st, src, maps, sao_np, qp, feat, tiles[0][0],
+                        last_xy, init_type)
             if cfg.tmvp and not non_ref:
                 # this picture's final motion field is a future TMVP
                 # collocated source
@@ -577,13 +849,31 @@ class Encoder:
                 for k in [k for k in self._ref_motion
                           if abs(k - poc) > 64]:
                     del self._ref_motion[k]
-            payload = b"".join(substr)
-            w = write_slice_header(cfg, slice_qp=qp, is_idr=is_idr,
-                                   poc=poc, slice_type=slice_type,
-                                   entry_points=[], neg_deltas=negs,
-                                   pos_deltas=poss, irap=irap)
-            w.write_bytes(payload)
-            nal = wrap_nal(nal_type, w.get_bytes())
+            if slice_per_tile:
+                # one independent slice NAL per tile
+                nals = []
+                for t_idx, (order, _, _, _) in enumerate(tiles):
+                    ax, ay = order[0]
+                    addr = ((ay >> cfg.ctb_log2) * n_ctb_x
+                            + (ax >> cfg.ctb_log2))
+                    w = write_slice_header(cfg, slice_qp=qp, is_idr=is_idr,
+                                           poc=poc, slice_type=slice_type,
+                                           entry_points=[], neg_deltas=negs,
+                                           pos_deltas=poss,
+                                           first_slice=t_idx == 0,
+                                           slice_address=addr, irap=irap)
+                    w.write_bytes(substr[t_idx])
+                    nals.append(wrap_nal(nal_type, w.get_bytes()))
+                nal = b"".join(nals)
+            else:
+                w = write_slice_header(cfg, slice_qp=qp, is_idr=is_idr,
+                                       poc=poc, slice_type=slice_type,
+                                       entry_points=[len(s) for s in
+                                                     substr[:-1]],
+                                       neg_deltas=negs, pos_deltas=poss,
+                                       irap=irap)
+                w.write_bytes(b"".join(substr))
+                nal = wrap_nal(nal_type, w.get_bytes())
 
             # per-picture metadata: prefix user-data SEIs before the
             # slice, Dolby Vision RPU as NAL 62 after it
@@ -604,31 +894,130 @@ class Encoder:
             pic.ref_planes = ref_planes
             return pic
 
-        if pipelined:
+        if pipelined and packed is not None:
             return PendingPicture(poc=poc, recon=recon,
                                   ref_planes=ref_planes, _finish=_complete)
         return _complete()
 
-    def encode(self, frames, *, frame_qps=None) -> tuple[bytes, list]:
+    def _encode_host(self, new_state, src, tiles, last_xy, qp, init_type,
+                     rd, feat, me_seed, ois, col_poc, split_policy,
+                     part_nxn_policy, kind):
+        """The host path: the numpy CTU coder over the tiles in two passes.
+        Pass 1 decides and reconstructs (RdSearch per CTU at RD presets,
+        else a decide-only walk whose decisions pass 2 replays), then
+        deblocking and SAO run over the picture; pass 2 records each
+        tile's syntax (SAO parameters, CTUs, end-of-slice and
+        end-of-subset bits), and each tile is arithmetic-coded on its own.
+        Returns (the picture state, the tile substreams)."""
+        from ..gpu import encode as genc
+        cfg = self.cfg
+        ctb = cfg.ctb_size
+        mcts = cfg.constrained_motion_tiles
+        slice_per_tile = bool(cfg.tile_slice_mode) and len(tiles) > 1
+        with genc.stage(f"{kind}.pass1"):
+            st = new_state()
+            st.col = self._col_for(col_poc)
+            decisions_all: dict = {}
+            # decide-once cache shared with pass 2 (identical recon state
+            # => identical plans and modes; pass 2 only replays)
+            dcache = {"plans": {}, "modes": {}}
+            for order, _, _, rect in tiles:
+                st.begin_tile()
+                est_ctx = init_contexts(qp, init_type=init_type)
+                mrect = rect if mcts else None
+                if rd:
+                    for x0, y0 in order:
+                        rds = RdSearch(st, src, me_seed=me_seed,
+                                       try_nxn=feat.try_nxn, features=feat,
+                                       ois=ois, mcts_rect=mrect)
+                        decisions, est_ctx = rds.compress_ctu(x0, y0,
+                                                              est_ctx)
+                        decisions_all[(x0, y0)] = decisions
+                else:
+                    # decide-only walk: its bins are never read
+                    enc1 = CtuEncoder(st, NullCoder(est_ctx), src,
+                                      split_policy=split_policy,
+                                      part_nxn_policy=part_nxn_policy,
+                                      me_seed=me_seed, features=feat,
+                                      ois=ois, decision_cache=dcache,
+                                      mcts_rect=mrect)
+                    for x0, y0 in order:
+                        enc1.code_ctu(x0, y0)
+
+        with genc.stage(f"{kind}.dlf_sao"):
+            if cfg.enable_deblocking:
+                deblock_picture(st)
+            sao_grid = None
+            if cfg.enable_sao:
+                sao_grid = derive_sao_params(st, src, lambda_sse(qp))
+                apply_sao(st, sao_grid, True, True)
+
+        with genc.stage(f"{kind}.pass2"):
+            st2 = new_state()
+            st2.col = st.col
+            recs = []
+            for t_idx, (order, left_col, top_row, rect) in enumerate(tiles):
+                st2.begin_tile()
+                mrect = rect if mcts else None
+                bac = CabacRecorder(init_contexts(qp, init_type=init_type))
+                if not rd:
+                    enc = CtuEncoder(st2, bac, src,
+                                     split_policy=split_policy,
+                                     part_nxn_policy=part_nxn_policy,
+                                     me_seed=me_seed, features=feat,
+                                     ois=ois, decision_cache=dcache,
+                                     mcts_rect=mrect)
+                for x0, y0 in order:
+                    if rd:
+                        d = decisions_all[(x0, y0)]
+                        enc = CtuEncoder(st2, bac, src,
+                                         split_policy=d.split_policy,
+                                         part_nxn_policy=d.part_nxn_policy,
+                                         mode_policy=d.mode_policy,
+                                         me_seed=me_seed, features=feat,
+                                         ois=ois, mcts_rect=mrect)
+                    if sao_grid is not None:
+                        encode_sao_ctb(bac, sao_grid, x0 // ctb, y0 // ctb,
+                                       True, True, bit_depth=cfg.bit_depth,
+                                       left_ok=x0 // ctb > left_col,
+                                       up_ok=y0 // ctb > top_row)
+                    enc.code_ctu(x0, y0)
+                    # end_of_slice_segment_flag: last CTB of the slice
+                    # (the tile in tile-slice mode, else the picture)
+                    last = (x0, y0) == (order[-1] if slice_per_tile
+                                        else last_xy)
+                    bac.encode_terminate(1 if last else 0)
+                if not slice_per_tile and t_idx != len(tiles) - 1:
+                    bac.encode_terminate(1)      # end_of_subset_one_bit
+                recs.append(bac)
+        with genc.stage(f"{kind}.cabac"):
+            substreams = [finalize_cabac(
+                bac, init_contexts(qp, init_type=init_type))
+                for bac in recs]
+        return st, substreams
+
+    def encode(self, frames, *, rd: bool | None = None,
+               frame_qps=None) -> tuple[bytes, list]:
         """Encode an iterable of frames; returns (annex_b_stream, recons in
-        display order). frame_qps: optional per-frame QP list (not read by
-        random access, which takes the configured QP plus its layer
-        offsets)."""
+        display order). rd: full RD mode decision (None: the preset's).
+        frame_qps: optional per-frame QP list (not read by random access,
+        which takes the configured QP plus its layer offsets)."""
         if self.cfg.pred_structure == 2:
-            stream, recons = self._encode_random_access(list(frames))
+            stream, recons = self._encode_random_access(list(frames), rd=rd)
             if self.cfg.code_eos_nal:
                 stream += wrap_nal(NalUnitType.EOS_NUT, b"")
             return stream, recons
         chunks = [self.headers()]
         recons = []
-        for au in self.encode_pictures(frames, frame_qps=frame_qps):
+        for au in self.encode_pictures(frames, rd=rd, frame_qps=frame_qps):
             chunks.append(au.data)
             recons.append(au.recon)
         if self.cfg.code_eos_nal:
             chunks.append(wrap_nal(NalUnitType.EOS_NUT, b""))
         return b"".join(chunks), recons
 
-    def encode_pictures(self, frames, *, frame_qps=None):
+    def encode_pictures(self, frames, *, rd: bool | None = None,
+                        frame_qps=None):
         """Streaming form of encode(): yields one EncodedAu per picture in
         decode order, without the parameter-set headers. Random access
         yields each access unit as it is encoded (not pipelined)."""
@@ -641,7 +1030,7 @@ class Encoder:
             self._ref_motion.clear()
         self._resuming = False
         if self.cfg.pred_structure == 2:
-            yield from self._ra_pictures(list(frames))
+            yield from self._ra_pictures(list(frames), rd=rd)
             return
         rc = RateControl(self.cfg)
         self.last_rc = rc
@@ -732,21 +1121,24 @@ class Encoder:
             # without speed control: rate control needs this picture's
             # bits, and speed control its time, before the next picture
             can_pipe = rc.mode == 0 and self._speed_target_fps is None
-            res = self.encode_frame(fr, is_idr=is_idr, poc=rel, qp=qp,
-                                    slice_type=stype, refs_l0=refs_l0,
-                                    non_ref=non_ref, retain_pocs=retain,
-                                    pipelined=can_pipe)
+            res = self.encode_frame(fr, rd=rd, is_idr=is_idr, poc=rel,
+                                    qp=qp, slice_type=stype,
+                                    refs_l0=refs_l0, non_ref=non_ref,
+                                    retain_pocs=retain, pipelined=can_pipe)
             if hl > 0 and (layer < hl or is_idr):
                 ll_last[0 if is_idr else layer] = (idx, res.ref_planes, rel)
             if pending is not None:
                 yield _emit(*pending)
                 pending = None
+                self._inflight = None
             if isinstance(res, PendingPicture):
                 pending = (res, meta)
+                self._inflight = res
             else:
                 yield _emit(res, meta)
         if pending is not None:
             yield _emit(*pending)
+            self._inflight = None
         # segment finished: the resumable state checkpoint() carries
         self._ckpt_prev_y = prev_y
         self._ckpt_ll_last = ll_last
@@ -802,17 +1194,17 @@ class Encoder:
 
     # ------------------------------------------------------ random access
 
-    def _encode_random_access(self, frames):
+    def _encode_random_access(self, frames, *, rd=None):
         self._dev_dpb.clear()
         self._ref_motion.clear()
         chunks = [self.headers()]
         recons: list = [None] * len(frames)
-        for au in self._ra_pictures(frames):
+        for au in self._ra_pictures(frames, rd=rd):
             chunks.append(au.data)
             recons[au.display_idx] = au.recon
         return b"".join(chunks), recons
 
-    def _ra_pictures(self, frames):
+    def _ra_pictures(self, frames, *, rd=None):
         """Random access with periodic IDR refresh (closed GOP): the
         stream is cut into independent segments of intra_period+1
         pictures, each a closed hierarchical-B GOP with its own IDR and
@@ -821,14 +1213,14 @@ class Encoder:
         (_ra_pictures_open). No scene-cut detection runs here."""
         cfg = self.cfg
         if cfg.intra_refresh_type == 1 and cfg.intra_period > 0:
-            yield from self._ra_pictures_open(frames)
+            yield from self._ra_pictures_open(frames, rd=rd)
             return
         seg_len = (cfg.intra_period + 1 if cfg.intra_period > 0
                    else len(frames))
         dec_base = 0
         for seg_start in range(0, len(frames), max(seg_len, 1)):
             seg = frames[seg_start:seg_start + seg_len]
-            for au in self._ra_segment(seg):
+            for au in self._ra_segment(seg, rd=rd):
                 yield EncodedAu(
                     data=au.data, recon=au.recon, poc=au.poc,
                     slice_type=au.slice_type, is_idr=au.is_idr,
@@ -848,7 +1240,7 @@ class Encoder:
             acc |= {r for r in (l0, l1) if r is not None}
         return out
 
-    def _ra_segment(self, frames):
+    def _ra_segment(self, frames, *, rd=None):
         """Hierarchical-B mini-GOPs: anchors form a P chain, interior
         pictures are bi-predicted from the two enclosing pictures,
         recursively. AUs are yielded in decode order as each is encoded;
@@ -886,7 +1278,7 @@ class Encoder:
             refs_l1 = [(dpb[l1], l1)] if l1 is not None else None
             retain = {r for r in future_refs[dec_idx]
                       if r != idx and r in dpb}
-            pic = self.encode_frame(frames[idx], qp=qp, poc=idx,
+            pic = self.encode_frame(frames[idx], rd=rd, qp=qp, poc=idx,
                                     is_idr=stype == 2, slice_type=stype,
                                     refs_l0=refs_l0, refs_l1=refs_l1,
                                     retain_pocs=retain)
@@ -902,7 +1294,7 @@ class Encoder:
             for k in [k for k in dpb if k < idx - 2 * gop]:
                 del dpb[k]
 
-    def _ra_pictures_open(self, frames):
+    def _ra_pictures_open(self, frames, *, rd=None):
         """CRA open-GOP random access: one continuous coded video
         sequence whose intra refresh points are CRA pictures (POC
         continues, the DPB survives). The hierarchical-B pictures between
@@ -958,7 +1350,7 @@ class Encoder:
             elif rasl:
                 nal = (NalUnitType.RASL_N if non_ref
                        else NalUnitType.RASL_R)
-            pic = self.encode_frame(frames[idx], qp=qp, poc=idx,
+            pic = self.encode_frame(frames[idx], rd=rd, qp=qp, poc=idx,
                                     is_idr=is_idr, slice_type=stype,
                                     refs_l0=refs_l0, refs_l1=refs_l1,
                                     retain_pocs=retain,

@@ -144,10 +144,11 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tapp.main(args)
-    with pytest.raises(NotImplementedError, match="device-helpers"):
-        tapp.main(args + ["-rd", "1", "-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="device-helpers"):
-        tapp.main(args + ["-encMode", "3", "-device", "cpu"])
+    # -rd 1 and the RD presets take the host path, on the CPU as asked,
+    # with the JAX CLI's bytes
+    for extra in (["-rd", "1"], ["-encMode", "3"]):
+        got = _both(tmp_path, args[:-1] + ["o.265"] + extra, ["o.265"])
+        assert got["o.265"][1] == got["o.265"][0], extra
 
 
 # ------------------------------------------------------------ the handle
@@ -199,19 +200,20 @@ def test_handle_error_surface():
     seen = []
     h.set_error_callback(lambda code, exc: seen.append(code))
     bad = Frame(*intra_frames(1, W, H)[0])
+    # segment overrides without segment_ov_enabled: JAX's ValueError
     bad.segment_ov = np.zeros((2, 4, 3), np.int32)
     h.send_picture(bad)
     h.send_eos()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         list(h.packets())
-    assert h.error_code == ErrorCode.UNSUPPORTED_FORMAT
-    assert seen == [ErrorCode.UNSUPPORTED_FORMAT]
+    assert h.error_code == ErrorCode.BAD_PARAMETER
+    assert seen == [ErrorCode.BAD_PARAMETER]
     h.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             EncoderHandle(cfg)
     with pytest.raises(NotImplementedError):
-        EncoderHandle(EncoderConfig(width=W, height=H, enc_mode=2),
+        EncoderHandle(EncoderConfig(width=W, height=H, mesh_pictures=True),
                       device="cpu")
 
 

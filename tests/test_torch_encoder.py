@@ -7,7 +7,8 @@ the port is held to the same bytes). Also: the port's decoder copy
 decodes that stream to the port's recon, the port's constant tables equal
 the JAX package's, importing the port loads neither JAX nor the JAX
 package, Encoder without a device raises where there is no GPU, and
-configurations outside the ported slice raise NotImplementedError.
+mesh picture parallelism (the one configuration the port refuses) raises
+NotImplementedError.
 """
 
 import subprocess
@@ -308,6 +309,9 @@ def test_encoder_without_device_needs_a_gpu():
     dict(improve_sharpness=True),
 ])
 def test_out_of_slice_config_raises(kw):
-    cfg = EncoderConfig(width=256, height=128, intra_period=-1, **kw)
+    """Mesh picture parallelism (several devices) is the one
+    configuration the port refuses, whatever it is combined with."""
+    cfg = EncoderConfig(width=256, height=128, intra_period=-1,
+                        mesh_pictures=True, **kw)
     with pytest.raises(NotImplementedError):
         Encoder(cfg, device="cpu")

@@ -2,23 +2,31 @@
 
     python3 tools/torch_stage_times.py [--frames N] [--structure ippp|ra]
                                        [--enc-mode M] [--bit-depth 8|10]
+                                       [--tiles C,R] [--sharp]
 
 Encodes N frames of the benchmark content (1920x1080, M7 or the preset
 --enc-mode gives, qp 32, 8-bit or at --bit-depth 10 the samples times 4
 plus 2-bit noise; IPPP, or with --structure ra random access with
-hierarchical B, hl=2) twice through Encoder.encode_pictures:
+hierarchical B, hl=2; --tiles C,R: C x R tiles; --sharp: adaptive QP
+for sharpness) twice through Encoder.encode_pictures:
 
   1. with the stage hook of gpu.encode (STAGE_TIMER) set: every stage of
-     the picture pipelines (upload, hme_search, the fused device stages,
-     download, host emitter; "p.*" P, "b.*" B and "i.*" I pictures) runs
-     between two torch.cuda.synchronize() calls, so each stage's wall
-     time includes its device work;
+     the picture pipelines runs between two torch.cuda.synchronize()
+     calls, so each stage's wall time includes its device work; "p.*" P,
+     "b.*" B and "i.*" I pictures. The fused device paths: upload,
+     hme_search, the fused device stages, download, host emitter. The
+     host path (tiles, --sharp, the RD presets M0-M5): upload (where the
+     picture has a device context, else none), hme_search or
+     dev_me_field (the motion seed), ois_maps, qp_map, pass1 (decide
+     and reconstruct), dlf_sao, pass2 (record the syntax), cabac, and
+     dpb_upload (the recon into the device DPB);
   2. without the hook, on a fresh encoder, with torch.profiler tracing the
      steady state. IPPP: the dispatches of pictures 2..N-1 and the host
-     walks of pictures 1..N-2, as the encoder pipelines them. RA: every
-     picture after the IDR, one at a time (random access is not
-     pipelined). It reports the wall time per picture, the device busy
-     time (sum of device event times) and the device's idle share.
+     walks of pictures 1..N-2, as the encoder pipelines them (host-path
+     pictures one at a time: pictures 2..N-1). RA: every picture after
+     the IDR, one at a time (random access is not pipelined). It reports
+     the wall time per picture, the device busy time (sum of device
+     event times) and the device's idle share.
 
 The two streams must be byte-identical (the hook only times). Fails if
 the native host emitter did not build. Prints one JSON line.
@@ -63,12 +71,18 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--structure", choices=("ippp", "ra"), default="ippp")
-    ap.add_argument("--enc-mode", type=int, default=7, choices=range(6, 12),
-                    help="preset (M8-M9 put intra CUs in inter pictures)")
+    ap.add_argument("--enc-mode", type=int, default=7, choices=range(12),
+                    help="preset (M0-M5 take the RD host path, M8-M9 put "
+                         "intra CUs in inter pictures)")
     ap.add_argument("--bit-depth", type=int, default=8, choices=(8, 10))
+    ap.add_argument("--tiles", default="1,1",
+                    help="tile columns,rows (more than one: the host path)")
+    ap.add_argument("--sharp", action="store_true",
+                    help="adaptive QP for sharpness (the host path)")
     args = ap.parse_args()
     if args.frames < 4:
         ap.error("--frames must be at least 4 (two warm-up pictures)")
+    cols, rows = (int(v) for v in args.tiles.split(","))
 
     import numpy as np
     import torch
@@ -93,7 +107,8 @@ def main() -> int:
     extra = dict(pred_structure=2, hierarchical_levels=2) if ra else {}
     cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
                         enc_mode=args.enc_mode, bit_depth=args.bit_depth,
-                        intra_period=-1, **extra)
+                        intra_period=-1, tile_columns=cols, tile_rows=rows,
+                        improve_sharpness=args.sharp, **extra)
 
     # ---- 1. every stage synchronized
     timer = StageTimer(K.KERNELS)
@@ -152,6 +167,7 @@ def main() -> int:
     res = {
         "card": smi, "frames": n, "structure": args.structure,
         "enc_mode": args.enc_mode, "bit_depth": args.bit_depth,
+        "tiles": [cols, rows], "sharp": args.sharp,
         "streams_equal": staged == plain,
         "kernels": [k.name for k in K.KERNELS],
         "stages": {k: {"median_s": float(np.median(v["s"])),
