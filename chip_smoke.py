@@ -4,9 +4,10 @@
 
 Phases (one line each, with seconds; any failure exits nonzero). The
 timed card phases (kernels, main, ra, cli_1080p, host_1080p,
-leaves_1080p) run first with nothing else on the host; then the CPU
-reference encodes of every check run in worker processes while the card
-encodes the small clips. Every 4:2:0 stream that is decoded below is also
+leaves_1080p, bd_1080p) run first with nothing else on the host; then
+the CPU reference encodes of every check run in worker processes while
+the card encodes the small clips (first the leaf clips and phase
+leaves_check, which wait for no CPU reference). Every 4:2:0 stream that is decoded below is also
 decoded by libde265 (through the port's binding) where the library is
 installed, and must give the recon:
   1. card      name / power limit (nvidia-smi), versions, and whether
@@ -16,7 +17,8 @@ installed, and must give the recon:
                the native host emitter (native/*.c, the system compiler)
   3. kernels   every kernel against its plain PyTorch version on the
                card at the 1080p main-path shapes (torch.equal), the
-               batched K2 shapes the callers use included, 8-bit and
+               batched K2 shapes the callers use included (K=13 and the
+               B path's K=9 of the CTB-64 merge snaps too), 8-bit and
                10-bit (K1 and K2 timed at both), with two
                times per variant: device_ms, the kernel's time (CUDA
                events around R_LAUNCHES back-to-back launches, over R),
@@ -66,17 +68,17 @@ installed, and must give the recon:
                intra CUs in P and in B pictures asserted), 10-bit M7 IPPP
                x10, VBR with lookahead 8 x10
  11. variants  the other fused-path configurations (presets M6, M10,
-               M11; hierarchical low-delay P; low-delay B; random access
-               hl=1; open GOP with a CRA and RASL pictures), 512x256 x 5
-               frames each (x 9 for the open GOP): card stream == CPU
-               stream, decoded to the recon
+               M11; CTB 64; hierarchical low-delay P; low-delay B; random
+               access hl=1; open GOP with a CRA and RASL pictures),
+               512x256 x 5 frames each (x 9 for the open GOP): card stream
+               == CPU stream, decoded to the recon
  12. stream_variants
                further paths, 512x256, card == CPU, decode == recon:
-               10-bit RA hl=2, 10-bit M8 low-delay B, VBR with
-               hierarchical low-delay P, a checkpoint split on the card
-               == the continuous encode, a CPU-made checkpoint restored
-               on the card, EncoderHandle streaming == batch, speed
-               control (the dynamic preset rising to M11)
+               10-bit RA hl=2, CTB 64 RA hl=2, 10-bit M8 low-delay B, VBR
+               with hierarchical low-delay P, a checkpoint split on the
+               card == the continuous encode, a CPU-made checkpoint
+               restored on the card, EncoderHandle streaming == batch,
+               speed control (the dynamic preset rising to M11)
  13. small_host
                the host path at small sizes, card == CPU, decode ==
                recon: 2x2 tiles, 4:2:2, improve_sharpness, constrained
@@ -103,12 +105,23 @@ installed, and must give the recon:
                K2 13), libde265 decode == recon; phase leaves_check
                (untimed, beside the CPU references): the stream == the
                same encode without lanes
- 16. small_leaves
+ 16. bd_1080p  the BD artifacts' configuration at full width: the clip of
+               BD_r05_1080p_ipp.json (tools/torch_compare_reference.py's
+               make_clip_scene, 1920x1080 x 24), qp 32 (the artifact's
+               middle row), M7, CTB 64, IDR period 31, scene-cut off,
+               IPPP, on the card: the stream must have the artifact's
+               68573 bytes and the recon its PSNR-Y 39.331 dB (the JAX
+               package's, from the CPU); IDR seconds and its wavefront
+               steps (64 * 62 = 3968), seconds per P picture, K1 / K2
+               launches per P picture (all > 0); phase bd_check (at the
+               end): the port's decoder, in a worker, gives back the
+               recon, with the same PSNR-Y
+ 17. small_leaves
                512x256 leaf clips with two lanes on cuda:0, hl=1 x10 and
                hl=2 with intra_period=7 x14: sha256 == the JAX package's
                mesh_pictures stream, == the card's stream without lanes,
                decode == recon
- 17. mesh      parallel.mesh at world size 1 over NCCL on cuda:0 (a file
+ 18. mesh      parallel.mesh at world size 1 over NCCL on cuda:0 (a file
                init_method under build/): sharded_hme at 1920x1088 (3 K1
                launches); K1 == its plain version on the 1216x1920 slab
                (halo added) at all three levels; sharded_hme == the slab's
@@ -118,7 +131,7 @@ installed, and must give the recon:
                gop_encode_step on 2 x 256x256 == fast_p_fused_packed per
                picture == the same steps over gloo on the CPU (a worker);
                frontend_step's total finite and == the CPU's (rtol 1e-9)
- 18. cpu_1080p the main phase's I + P access units equal to a CPU encode
+ 19. cpu_1080p the main phase's I + P access units equal to a CPU encode
                of the first two frames; the ra phase's I0, P4 and B2
                access units equal to the first three of a CPU encode of
                the same frames; the cli_1080p stream's I + P access units
@@ -263,6 +276,17 @@ SMALL_LEAVES = {
                        "dbe112b6a3d16a0b3ef55d10e3e5df9b", 34465),
 }
 
+# phase bd_1080p: the BD artifacts' configuration (CTB 64, IDR period 31,
+# no scene-cut detection, M7) at 1920x1080 on the artifact's own clip
+# (tools/torch_compare_reference.make_clip_scene(1920, 1080, 24)) at its
+# middle QP: the stream must have the artifact's bytes and PSNR-Y (the
+# JAX package's, computed on the CPU)
+BD_ARTIFACT = "BD_r05_1080p_ipp.json"
+BD_QP = 32
+# the fused IDR's intra wavefront at CTB 64: 64 z-slots per CTB along
+# 2 * (17 - 1) + 30 CTB diagonals of the 1920x1088 grid
+BD_IDR_STEPS = 64 * (2 * 16 + 30)
+
 # phase mesh: gop_encode_step / frontend_step at 256x256 on 2 pictures of
 # make_frames(3, 256, 256, seed=13) (picture b+1 against picture b)
 MESH_HW = 256
@@ -282,6 +306,8 @@ CPU_THREADS = 2
 RA_KW = dict(pred_structure=2, hierarchical_levels=2)
 # (config, frames) of phase variants, 512x256
 VARIANTS = ((dict(enc_mode=6), 5), (dict(enc_mode=10), 5),
+            # the BD artifacts' CTB (the 64x64 level, 64 wavefront slots)
+            (dict(ctb_size=64), 5),
             (dict(enc_mode=11), 5), (dict(hierarchical_levels=2), 5),
             (dict(pred_structure=1), 5),
             (dict(pred_structure=2, hierarchical_levels=1), 5),
@@ -297,6 +323,7 @@ VARIANTS = ((dict(enc_mode=6), 5), (dict(enc_mode=10), 5),
 STREAM_VARIANTS = (
     ("10-bit RA hl=2", dict(bit_depth=10, **RA_KW), 5, dict(bit_depth=10),
      "plain"),
+    ("CTB 64 RA hl=2", dict(ctb_size=64, **RA_KW), 5, {}, "plain"),
     ("10-bit M8 LDB", dict(bit_depth=10, enc_mode=8, pred_structure=1), 5,
      dict(bit_depth=10, patches=True), "plain"),
     ("VBR hier LD-P", dict(rate_control_mode=1, target_bitrate=600_000,
@@ -720,6 +747,31 @@ def phase_kernels(results: dict):
                       plain_reps=2)
     log(f"  K2 mc_block B-shaped luma bd=8 14-bit K=7 (merge_snap_b) -> "
         f"{'x'.join(map(str, out.shape))}: equal, {_fmt(k2b)}")
+    # ---- K2 as the CTB-64 path launches it: merge_snap's rounded luma
+    # launch with the 64 level (the decided field and the A1 / B1 / TMVP
+    # fields of four CU sizes, K=13) and merge_snap_b's 14-bit one (K=9)
+    mv13 = torch.from_numpy(k2_fields(13, nby, nbx, seed=7)).to(dev)
+    mv13c = mv13.clamp(-lim, lim)
+    args = k2_args(genc, "luma", exts[8][0], mv13c, True, 8)
+    out = genc._mc_luma(exts[8][0], mv13, 8, True)
+    want = K.mc_block_ref(*args)
+    args9 = k2_args(genc, "luma", exts[8][0], mv13c[:9].contiguous(), False,
+                    8)
+    out9 = genc._mc_luma(exts[8][0], mv13[:9].contiguous(), 8, False)
+    want9 = K.mc_block_ref(*args9)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "K2 CTB-64 luma K=13 differs")
+    check(torch.equal(out9, want9), "K2 CTB-64 B-shaped luma K=9 differs")
+    max_err["mc_block"] = max(max_err["mc_block"],
+                              float((out - want).abs().max()),
+                              float((out9 - want9).abs().max()))
+    nbytes, ops = k2_work(exts[8][0], args[1:5], *args[5:7])
+    k2_64 = time_kernel(lambda a=args: K.mc_block(*a),
+                        lambda a=args: K.mc_block_ref(*a), nbytes, ops,
+                        plain_reps=2)
+    log(f"  K2 mc_block CTB-64 luma bd=8 rounded K=13 (merge_snap) -> "
+        f"{'x'.join(map(str, out.shape))}: equal, {_fmt(k2_64)}; 14-bit "
+        f"K=9 (merge_snap_b): equal")
     b1, by1 = bound(k1["bytes"], k1["ops"])
     b10, by10 = bound(k1_10["bytes"], k1_10["ops"])
     results["sad_field"] = {
@@ -731,9 +783,11 @@ def phase_kernels(results: dict):
                  "plain_ms": k1_10["plain_ms"], "bound_ms": b10,
                  "bound_by": by10}}
     results["mc_block"] = dict(k2, max_abs_err=max_err["mc_block"],
-                               b_launch=k2b, bd10=k2_10)
+                               b_launch=k2b, bd10=k2_10,
+                               ctb64_launch=k2_64)
     log(f"phase kernels: K1 x3 levels at 8 and 10 bits, K2 x8 one-field, "
-        f"x8 batched and the B-shaped variant equal to plain; device_ms "
+        f"x8 batched, the B-shaped and the CTB-64 variants equal to plain; "
+        f"device_ms "
         f"over "
         f"{R_LAUNCHES} launches "
         f"({time.perf_counter() - t0:.3f} s)")
@@ -1790,6 +1844,151 @@ def phase_leaves_check(stream: bytes):
         f"({time.perf_counter() - t0:.3f} s)")
 
 
+def _bd_tool():
+    """tools/torch_compare_reference (the BD artifacts' clip, config and
+    PSNR)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import torch_compare_reference
+    return torch_compare_reference
+
+
+def _bd_setup():
+    """(artifact row at BD_QP, config, frame count) of phase bd_1080p,
+    from the artifact as the tool reads it."""
+    tcr = _bd_tool()
+    with open(os.path.join(HERE, BD_ARTIFACT)) as f:
+        art = json.load(f)
+    row = next(r for r in art["rows"] if r["qp"] == BD_QP)
+    w, h = art["dims"]
+    ps, hl = tcr.artifact_structure(art["pred_struct"])
+    cfg = tcr.ours_config(w, h, BD_QP, art["preset"], art["intra_period"],
+                          ps, hl)
+    return row, cfg, art["frames"]
+
+
+def _bd_clip(cfg, n):
+    """The artifact's clip, as (y, cb, cr) per frame."""
+    return _bd_tool().make_clip_scene(cfg.width, cfg.height, n, None)
+
+
+def _plane_digests(frames) -> list[str]:
+    """sha256 of each picture's three planes as int32."""
+    out = []
+    for f in frames:
+        m = hashlib.sha256()
+        for p in (f.y, f.cb, f.cr):
+            m.update(np.ascontiguousarray(p, np.int32).tobytes())
+        out.append(m.hexdigest())
+    return out
+
+
+def phase_bd_1080p(results: dict):
+    """The BD artifacts' configuration at full width on the card: the
+    artifact's clip at BD_QP, M7, CTB 64, IDR period 31, scene-cut off,
+    IPPP. The stream must have the artifact's bytes and its recon the
+    artifact's PSNR-Y; the IDR must run BD_IDR_STEPS wavefront steps and
+    every P picture launch K1 and K2. Returns (stream, recon digests) for
+    phase bd_check, which decodes the stream in a worker."""
+    import torch
+    from svt_hevc_tpu_torch import Encoder
+    from svt_hevc_tpu_torch.gpu import intra_pass
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    from svt_hevc_tpu_torch.io.yuv import Frame
+
+    t_phase = time.perf_counter()
+    tcr = _bd_tool()
+    row, cfg, n = _bd_setup()
+    clip = _bd_clip(cfg, n)
+    check(cfg.ctb_size == 64 and not cfg.scene_change_detection
+          and not cfg.code_eos_nal and cfg.pred_structure == 0,
+          "bd_1080p: not the artifacts' configuration")
+    frames = [Frame(y.astype(np.uint8), cb, cr) for y, cb, cr in clip]
+    names = [k.name for k in K.KERNELS]
+    enc = Encoder(cfg)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    wf0 = dict(intra_pass.WAVEFRONT)
+    snaps, times, aus = [], [], []
+    t0 = time.perf_counter()
+    for au in enc.encode_pictures(iter(frames)):
+        times.append(time.perf_counter())
+        snaps.append(_launch_counts())
+        aus.append(au)
+    totals = _launch_counts()
+    runs = intra_pass.WAVEFRONT["runs"] - wf0["runs"]
+    steps = intra_pass.WAVEFRONT["steps"] - wf0["steps"]
+    # as in phase main: frames k >= 1 dispatch between the yields of AU
+    # k-2 and AU k-1 (frames 0 and 1 both before AU 0)
+    per_p = [snaps[0]] + [snaps[k - 1] - snaps[k - 2] for k in range(2, n)]
+    types = "".join("IPB"[2 - a.slice_type] for a in aus)
+    check(types == "I" + "P" * (n - 1), f"bd_1080p: picture types {types}")
+    for i, c in enumerate(per_p, start=1):
+        check(all(c > 0), f"bd_1080p P picture {i}: launches "
+                          f"{dict(zip(names, c))}")
+    check((runs, steps) == (1, BD_IDR_STEPS),
+          f"bd_1080p: {runs} wavefront runs of {steps} steps, not one of "
+          f"{BD_IDR_STEPS}")
+    stream = enc.headers() + b"".join(a.data for a in aus)
+    psnr = tcr.psnr_y([a.recon.y for a in aus], clip)
+    check(len(stream) == row["ours_bytes"],
+          f"bd_1080p: {len(stream)} bytes, artifact {row['ours_bytes']}")
+    check(round(psnr, 3) == row["ours_psnr"],
+          f"bd_1080p: recon PSNR-Y {psnr:.6f} dB, artifact "
+          f"{row['ours_psnr']}")
+    for k, name in enumerate(names):
+        results[name]["launches_ctb64"] = int(totals[k])
+        results[name]["launches_per_p_picture_ctb64"] = sorted(
+            {int(c[k]) for c in per_p})
+    idr = times[0] - t0
+    # between the yields of AU k-1 and AU k: picture k's host walk and
+    # picture k+1's dispatch (the last interval holds a walk only)
+    p_s = np.diff(times)[:-1]
+    results["bd_1080p"] = {"idr_s": idr, "p_s": [float(t) for t in p_s],
+                           "wavefront_steps": steps}
+    log(f"  1080p x{n} M7 qp {BD_QP} CTB 64 IDR period 31: IDR {idr:.3f} s "
+        f"({steps} wavefront steps, {idr / steps * 1e3:.3f} ms per step, "
+        f"with P1's dispatch), P {p_s.min():.3f}-{p_s.max():.3f} s "
+        f"(median {np.median(p_s):.3f}, mean {p_s.mean():.3f}) per picture "
+        f"between access units; {len(stream)} bytes (artifact "
+        f"{row['ours_bytes']}), recon PSNR-Y {psnr:.6f} dB (artifact "
+        f"{row['ours_psnr']})")
+    log("  launches per P picture: " + ", ".join(
+        f"{name} {sorted({int(c[k]) for c in per_p})}"
+        for k, name in enumerate(names)))
+    log(f"phase bd_1080p: 1920x1080 x{n} CTB 64 on the card, the "
+        f"artifact's bytes and PSNR-Y ({time.perf_counter() - t_phase:.3f} "
+        f"s)")
+    return stream, _plane_digests([a.recon for a in aus])
+
+
+def cpu_bd_decode(stream: bytes):
+    """phase bd_1080p's stream through the port's decoder (in a worker):
+    (digests of the decoded pictures, their PSNR-Y against the clip,
+    seconds)."""
+    from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+    t0 = time.perf_counter()
+    dec = decode_stream(stream)
+    _, cfg, n = _bd_setup()
+    psnr = _bd_tool().psnr_y([d.y for d in dec], _bd_clip(cfg, n))
+    return _plane_digests(dec), psnr, time.perf_counter() - t0
+
+
+def phase_bd_check(digests, cpu):
+    """The port's decoder gives back phase bd_1080p's recon, and its
+    decode has the artifact's PSNR-Y."""
+    t0 = time.perf_counter()
+    row, _, _ = _bd_setup()
+    dec, psnr, t_dec = cpu.result()
+    check(dec == digests, "bd_1080p: decoded != recon")
+    check(round(psnr, 3) == row["ours_psnr"],
+          f"bd_1080p: decoded PSNR-Y {psnr:.6f} dB, artifact "
+          f"{row['ours_psnr']}")
+    log(f"phase bd_check: the bd_1080p stream decodes to its recon "
+        f"({len(dec)} pictures, the port's decoder in a worker, "
+        f"{t_dec:.3f} s), PSNR-Y {psnr:.6f} dB "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+
 def phase_small_leaves():
     """The 512x256 leaf clips with two lanes on the card: the JAX
     package's mesh_pictures sha256, == the card's stream without lanes,
@@ -2051,17 +2250,23 @@ def main() -> int:
     cli_stream = phase_cli_1080p(results)
     host_job, host_card = phase_host_1080p(results)
     leaves_stream = phase_leaves_1080p(results)
+    bd_stream, bd_digests = phase_bd_1080p(results)
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(
         max_workers=CPU_WORKERS,
         mp_context=multiprocessing.get_context("spawn"))
     try:
+        cpu_bd = pool.submit(cpu_bd_decode, bd_stream)
         cpu = {name: pool.submit(cpu_reference, job)
                for name, job in cpu_jobs().items()}
         cpu_host = pool.submit(cpu_host_helpers, host_job)
         cpu_mesh_job = pool.submit(cpu_mesh, None)
         del host_job
+        # the card phases that wait for no CPU reference first, while the
+        # workers compute the first references
+        phase_small_leaves()
+        phase_leaves_check(leaves_stream)
         phase_small(cpu["small"])
         phase_small_ra(cpu["small_ra"])
         phase_small_new(cpu)
@@ -2069,10 +2274,9 @@ def main() -> int:
         phase_stream_variants([cpu[f"stream_variant{i}"]
                                for i in range(len(STREAM_VARIANTS))])
         phase_small_host(cpu)
-        phase_small_leaves()
-        phase_leaves_check(leaves_stream)
         phase_mesh(results, cpu_mesh_job)
         phase_host_check(host_card, cpu_host)
+        phase_bd_check(bd_digests, cpu_bd)
         phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu["main"],
                         cpu["ra"], cpu["cli"])
     finally:
@@ -2097,11 +2301,15 @@ def main() -> int:
                "launches_per_picture_host": r["launches_host"],
                "launches_leaves_1080p": r["launches_leaves"],
                "launches_per_leaf": r["launches_per_leaf"],
-               "launches_sharded_hme": r["launches_sharded_hme"]}
+               "launches_sharded_hme": r["launches_sharded_hme"],
+               "launches_ctb64": r["launches_ctb64"],
+               "launches_per_p_picture_ctb64":
+                   r["launches_per_p_picture_ctb64"]}
         keys = ("device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
         row["bd10"] = {k: r["bd10"][k] for k in keys}
-        if "b_launch" in r:
-            row["b_launch"] = {k: r["b_launch"][k] for k in keys}
+        for launch in ("b_launch", "ctb64_launch"):
+            if launch in r:
+                row[launch] = {k: r[launch][k] for k in keys}
         rows.append(row)
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))

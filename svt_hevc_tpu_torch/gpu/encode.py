@@ -157,6 +157,17 @@ def _imm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.int64)
 
 
+def _fma(a, b, c):
+    """float32 a * b + c rounded once, as XLA:CPU computes the product-
+    plus-addend it fuses into one multiply-add (jitted JAX graphs do;
+    eager PyTorch rounds the product and the sum apart). The product of
+    two float32 values is exact in float64."""
+    def f64(x):
+        return (x.to(torch.float64) if isinstance(x, torch.Tensor)
+                else float(np.float32(x)))
+    return (f64(a) * f64(b) + f64(c)).to(torch.float32)
+
+
 def _isum_f32(m: torch.Tensor, dims) -> torch.Tensor:
     """Exact sum of an integer tensor over dims, as float32."""
     return m.to(torch.int64).sum(dim=dims).to(torch.float32)
@@ -424,8 +435,8 @@ def _tu_rd_better(bb, lv, r, lv2, r2, lam):
     """True for TUs where (lv2, r2) wins D + lambda*R against (lv, r)."""
     d = bb - r
     d2 = bb - r2
-    j = _isum_f32(d * d, (-2, -1)) + lam * _tu_bits_est(lv)
-    j2 = _isum_f32(d2 * d2, (-2, -1)) + lam * _tu_bits_est(lv2)
+    j = _fma(lam, _tu_bits_est(lv), _isum_f32(d * d, (-2, -1)))
+    j2 = _fma(lam, _tu_bits_est(lv2), _isum_f32(d2 * d2, (-2, -1)))
     return (j2 < j)[..., None, None]
 
 
@@ -561,7 +572,7 @@ def _tu_tree_dp(res_y, rr_s, lv_s, cu_log2_8, inter8, tu_cap8, lam):
         k = n // 8
         dd = res_y.to(torch.int64) - rr_s[lg].to(torch.int64)
         d1 = _isum_box_f32(dd * dd, n)
-        rd = d1 + lam * (_plane_tu_bits(lv_s[lg], n) + 2.0)
+        rd = _fma(lam, _plane_tu_bits(lv_s[lg], n) + 2.0, d1)
         valid = (_pool_min(tu_cap8, k) >= lg) & (_pool_max(lo8, k) <= lg)
         cost[lg] = torch.where(valid, rd, INF)
 
@@ -1055,7 +1066,7 @@ def _rd_leaf_cost(srcf, pred, s: int, qp: int, lam_sse: float, sig_bits,
     rbits = _boxsum(_plane_tu_bits_rd(lv, tun), s // tun)
     if isinstance(sig_bits, torch.Tensor):
         sig_bits = sig_bits.to(torch.float32)
-    return d + lam_sse * (rbits + sig_bits)
+    return _fma(lam_sse, rbits + sig_bits, d)
 
 
 def _scale_mv_dev(mv, tb: int, td: int):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.sao import SAO_RATE_SCALE
-from .encode import eo_cat_lut
+from .encode import _f32, _fma, eo_cat_lut
 from .kernels import edge_pad
 
 SAO_OFF, SAO_BAND, SAO_EDGE = 0, 1, 2
@@ -49,8 +49,9 @@ def _bo_offsets_gains(bo_cnt, bo_sum, lam: float, mx: int):
         [torch.where(torch.gather(gains, -1, (bp + i)[..., None])[..., 0] > 0,
                      torch.gather(ob, -1, (bp + i)[..., None])[..., 0], 0.0)
          for i in range(4)], -1)
-    g = (torch.gather(win, -1, bp[..., None])[..., 0]
-         - lam * SAO_RATE_SCALE * (9.0 + (offs.abs() + 1.0).sum(-1)))
+    g = _fma(-_f32(lam * SAO_RATE_SCALE),
+             9.0 + (offs.abs() + 1.0).sum(-1),
+             torch.gather(win, -1, bp[..., None])[..., 0])
     return bp.to(torch.int32), offs.to(torch.int32), g
 
 
@@ -66,7 +67,7 @@ def sao_decide_dev(stats, lam: float, bit_depth: int = 8):
         eo_offs, eo_gain = _eo_offsets_gains(st["eo_cnt"], st["eo_sum"], mx)
         eo_rate = SAO_RATE_SCALE * (
             4.0 + (eo_offs.abs() + 1.0).sum(-1).to(torch.float32))
-        eo_score = eo_gain - lam * eo_rate
+        eo_score = _fma(-lam, eo_rate, eo_gain)
         bo_bp, bo_offs, bo_score = _bo_offsets_gains(st["bo_cnt"],
                                                      st["bo_sum"], lam, mx)
         bo_valid = (bo_score > 0) & (bo_offs != 0).any(-1)

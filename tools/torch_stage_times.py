@@ -3,6 +3,7 @@
     python3 tools/torch_stage_times.py [--frames N] [--structure ippp|ra]
                                        [--enc-mode M] [--bit-depth 8|10]
                                        [--tiles C,R] [--sharp]
+    python3 tools/torch_stage_times.py --packed
 
 Encodes N frames of the benchmark content (1920x1080, M7 or the preset
 --enc-mode gives, qp 32, 8-bit or at --bit-depth 10 the samples times 4
@@ -30,6 +31,15 @@ for sharpness) twice through Encoder.encode_pictures:
 
 The two streams must be byte-identical (the hook only times). Fails if
 the native host emitter did not build. Prints one JSON line.
+
+--packed: instead, the stage-by-stage P pipeline of the packed graphs
+(the mesh step's and tools/stage_times.py's split) on picture 2 of 4
+IPPP M7 frames against the encoder's oldest device reference, after a
+warm-up of two pictures, each stage between two torch.cuda.synchronize()
+calls: the source upload, hme_search and the download of its seed,
+ois_packed and its download, the luma and chroma phase planes,
+dense_md_p_packed, its download and unpack, the host decide_tree (at
+CTB 32, with empty intra maps), encode_pass_p_packed and its download.
 """
 
 from __future__ import annotations
@@ -38,7 +48,6 @@ import argparse
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -67,6 +76,70 @@ class StageTimer:
                                      zip(self.kernels, c0)]))
 
 
+def packed_split(w=1920, h=1080, device="cuda") -> dict:
+    """Milliseconds of each stage of the packed P pipeline (the twin of
+    tools/stage_times.py's split) at w x h, synchronized around every
+    stage."""
+    import numpy as np
+    import torch
+    from chip_smoke import make_frames
+    from svt_hevc_tpu_torch import Encoder, EncoderConfig
+    from svt_hevc_tpu_torch.gpu import encode as genc
+    from svt_hevc_tpu_torch.gpu.analysis import ois_packed
+    from svt_hevc_tpu_torch.gpu.me import hme_search
+    from svt_hevc_tpu_torch.pipeline.fast_path import decide_tree
+
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    ms: dict = {}
+
+    def t(label, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    frames = make_frames(4, w, h, seed=7)
+    cfg = EncoderConfig(width=w, height=h, qp=32, fps_num=50,
+                        enc_mode=7, intra_period=-1)
+    enc = Encoder(cfg, device=device)
+    gen = enc.encode_pictures(iter(frames))
+    t("warmup 2 pictures", lambda: (next(gen), next(gen)))
+    w64 = (cfg.coded_width + 63) // 64 * 64
+    h64 = (cfg.coded_height + 63) // 64 * 64
+    fr = frames[2]
+    src = t("src upload", lambda: genc.prep_planes(
+        fr.y, fr.cb, fr.cr, w64, h64, enc.device))
+    ref = next(iter(enc._dev_dpb.values()))
+    mv = t("hme_search", lambda: hme_search(src[0], ref[0]))
+    seed = t("hme seed download", lambda: mv[0].cpu())
+    of = t("ois_packed", lambda: ois_packed(src[0]))
+    t("ois download", lambda: of.cpu().numpy())
+    raws = t("phase planes", lambda: (genc.luma_phase_planes(ref[0]),
+                                      genc.chroma_phase_planes(ref[1]),
+                                      genc.chroma_phase_planes(ref[2])))
+    mdf = t("dense_md_p_packed", lambda: genc.dense_md_p_packed(
+        src[0], ref[0], seed.to(enc.device)))
+    md = t("dense_md download + unpack", lambda: genc.unpack(
+        mdf.cpu().numpy(), genc.md_specs(h64, w64)))
+    ois = {n: (np.zeros((h64 // n, w64 // n), np.int32),
+               np.full((h64 // n, w64 // n), 10**6, np.int32))
+           for n in (4, 8, 16, 32)}
+    maps = t("decide_tree (host)", lambda: decide_tree(md, ois, 5))
+    tu = np.minimum(maps.cu_log2_8, 5)
+    dev = enc.device
+    epf = t("encode_pass_p_packed", lambda: genc.encode_pass_p_packed(
+        src[0], src[1], src[2], raws[0], raws[1], raws[2],
+        torch.from_numpy(maps.mv8).to(dev),
+        torch.from_numpy(maps.inter8).to(dev),
+        torch.from_numpy(tu).to(dev), 32, 32))
+    t(f"encode_pass download ({epf.numel() * 2} bytes)",
+      lambda: epf.cpu().numpy())
+    return ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=5)
@@ -79,6 +152,8 @@ def main() -> int:
                     help="tile columns,rows (more than one: the host path)")
     ap.add_argument("--sharp", action="store_true",
                     help="adaptive QP for sharpness (the host path)")
+    ap.add_argument("--packed", action="store_true",
+                    help="the packed graphs' stage-by-stage P split")
     args = ap.parse_args()
     if args.frames < 4:
         ap.error("--frames must be at least 4 (two warm-up pictures)")
@@ -95,12 +170,20 @@ def main() -> int:
     from svt_hevc_tpu_torch.gpu import encode as genc
     from svt_hevc_tpu_torch.gpu import kernels as K
     from svt_hevc_tpu_torch.pipeline.native_emit import native_emit_available
+    from torch_compare_reference import card_line
 
     if not native_emit_available():
         print("FAIL: the native host emitter (native/*.c) did not build",
               flush=True)
         return 1
     K.build_all()
+    if args.packed:
+        if (args.structure, args.enc_mode, args.bit_depth, cols, rows,
+                args.sharp) != ("ippp", 7, 8, 1, 1, False):
+            ap.error("--packed times the 8-bit M7 IPPP fused P picture")
+        print(json.dumps({"card": card_line("cuda"),
+                          "packed_ms": packed_split()}), flush=True)
+        return 0
     n = args.frames
     frames = make_frames(n, 1920, 1080, seed=7, bit_depth=args.bit_depth)
     ra = args.structure == "ra"
@@ -161,11 +244,8 @@ def main() -> int:
             dev_us += ev.time_range.elapsed_us()
             n_events += 1
     wall = window["wall"]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     res = {
-        "card": smi, "frames": n, "structure": args.structure,
+        "card": card_line("cuda"), "frames": n, "structure": args.structure,
         "enc_mode": args.enc_mode, "bit_depth": args.bit_depth,
         "tiles": [cols, rows], "sharp": args.sharp,
         "streams_equal": staged == plain,
