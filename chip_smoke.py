@@ -26,7 +26,9 @@ installed, and must give the recon:
                (what a launch-bound caller pays); the plain version's
                device time and the bound beside them
   4. main      1920x1080 x 5 frames, M7, qp 32, IPPP, on the card: IDR /
-               first P / steady P seconds, kernel launches per P picture
+               first P / steady P seconds from the benchmark's own timed
+               loop (tools/torch_bench.py's timed_encode; steady P over
+               access units 3 and 4), kernel launches per P picture
                (all > 0), recon PSNR, libde265 decode == recon
   5. ra        1920x1080 x 5 frames, M7, qp 32, random access (hl=2: I0
                P4 B2 B1 B3), on the card: IDR, P-anchor and per-layer B
@@ -137,6 +139,10 @@ installed, and must give the recon:
                the same frames; the cli_1080p stream's I + P access units
                equal to the first two of a CPU encode of its 5 frames
                (the lookahead sees the same frames)
+ 20. bench     tools/torch_bench.py --gpu-cpu-check in a subprocess
+               (started with the CPU workers): exit code 0, the card's
+               and the CPU's streams of bench.py's check clip identical,
+               with the JAX package's 19785 bytes and sha256
 The line before the last is the kernel JSON, the last line the device
 JSON. Imports nothing of JAX.
 
@@ -302,6 +308,8 @@ R_LAUNCHES = 200
 # three 1080p references, the others the small clips
 CPU_WORKERS = 5
 CPU_THREADS = 2
+# phase bench's subprocess (tools/torch_bench.py --gpu-cpu-check)
+BENCH_CHECK_TIMEOUT_S = 600
 
 RA_KW = dict(pred_structure=2, hierarchical_levels=2)
 # (config, frames) of phase variants, 512x256
@@ -343,14 +351,31 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
 
+_BENCH_TOOL = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _bench_tool():
+    """tools/torch_bench.py (bench.py's twin on the port), loaded by file
+    (tools/ is not a package)."""
+    global _BENCH_TOOL
+    if _BENCH_TOOL is None:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "torch_bench", os.path.join(HERE, "tools", "torch_bench.py"))
+        _BENCH_TOOL = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_BENCH_TOOL)
+    return _BENCH_TOOL
+
+
 def make_frames(n, w, h, seed=7, patches=False, bit_depth=8,
                 chroma_format=1, noise=0.0):
-    """Synthetic content: textured luma and chroma with a global pan and a
-    moving object (the repository benchmark's generator). patches: every
+    """Synthetic content: the benchmark's frames (tools/torch_bench.py's
+    make_frames, bench.py's generator: textured luma and chroma with a
+    global pan and a moving object), then per picture: patches: every
     odd picture gets (w // 256) * (h // 256) new 64x64 smooth ramps of
     seeded slope, direction and place, which no reference holds (intra
     CUs at M8-M9; the even pictures show what a picture without them
@@ -359,28 +384,9 @@ def make_frames(n, w, h, seed=7, patches=False, bit_depth=8,
     the 8-bit luma (a source the denoiser filters). chroma_format 2 / 3:
     the 4:2:0 chroma rows (and columns) repeated to 4:2:2 / 4:4:4."""
     from svt_hevc_tpu_torch.io.yuv import Frame
-    rng = np.random.default_rng(seed)
-    big = rng.integers(0, 256, (h + 128, w + 128)).astype(np.float32)
-    for _ in range(2):
-        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)
-               + np.roll(big, -1, 0) + np.roll(big, -1, 1)) / 5.0
-    big = big * 0.7 + 64
-    cbig = rng.integers(0, 256, (h // 2 + 64, w // 2 + 64)).astype(np.float32)
-    for _ in range(2):
-        cbig = (cbig + np.roll(cbig, 1, 0) + np.roll(cbig, 1, 1)
-                + np.roll(cbig, -1, 0) + np.roll(cbig, -1, 1)) / 5.0
-    cbig = cbig * 0.25 + 96
     frames = []
-    for i in range(n):
-        ox, oy = (2 * i) % 64, i % 64
-        y = big[oy:oy + h, ox:ox + w].astype(np.uint8).copy()
-        sx, sy = (100 + 7 * i) % (w - 200), (80 + 5 * i) % (h - 200)
-        y[sy:sy + 96, sx:sx + 96] = 200
-        cb = cbig[oy // 2:oy // 2 + h // 2,
-                  ox // 2:ox // 2 + w // 2].astype(np.uint8).copy()
-        cr = (255 - cbig[oy // 2:oy // 2 + h // 2,
-                         ox // 2:ox // 2 + w // 2]).astype(np.uint8).copy()
-        cb[sy // 2:sy // 2 + 48, sx // 2:sx // 2 + 48] = 80
+    for i, base in enumerate(_bench_tool().make_frames(n, w, h, seed)):
+        y, cb, cr = base.y, base.cb, base.cr
         if patches and i % 2 == 1:
             prng = np.random.default_rng(seed * 1000 + i)
             a = np.arange(64)
@@ -1014,30 +1020,30 @@ def phase_variants(cpus):
 
 
 def phase_main(results: dict):
-    import torch
-    from svt_hevc_tpu_torch import Encoder, EncoderConfig
+    """bench.py's configuration for 5 frames, timed by the benchmark's own
+    loop (tools/torch_bench.timed_encode: host clock between yielded
+    access units; IDR holds the first P picture's dispatch, the steady
+    clock starts at access unit 2)."""
+    from svt_hevc_tpu_torch import Encoder
     from svt_hevc_tpu_torch.gpu import kernels as K
 
+    tool = _bench_tool()
     t_phase = time.perf_counter()
     n = 5
     frames = make_frames(n, 1920, 1080, seed=7)
-    cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
-                        enc_mode=7, intra_period=-1)
-    enc = Encoder(cfg)
+    enc = Encoder(tool.bench_config())
     names = [k.name for k in K.KERNELS]
 
     def counts():
         return np.array([k.launches for k in K.KERNELS])
 
-    torch.cuda.synchronize()
     K.reset_launches()
     c_start = counts()
-    snaps, times, aus = [], [], []
-    t0 = time.perf_counter()
-    for au in enc.encode_pictures(iter(frames)):
-        times.append(time.perf_counter())
-        snaps.append(counts())
-        aus.append(au)
+    snaps = []
+    state = tool.new_state()
+    aus = tool.timed_encode(enc, frames, state, "cuda",
+                            on_au=lambda au: snaps.append(counts()))
+    check(len(aus) == n, f"main: {len(aus)} access units, not {n}")
     totals = counts() - c_start
     # frames k >= 1 dispatch between the yields of AU k-2 and AU k-1
     # (frames 0 and 1 both before AU 0; the I picture launches neither
@@ -1048,23 +1054,60 @@ def phase_main(results: dict):
         check(all(c > 0), f"P picture {i}: launches {dict(zip(names, c))}")
     for k, name in enumerate(names):
         results[name]["launches"] = int(totals[k])
-    idr = times[0] - t0
-    first_p = times[1] - times[0]
-    steady = (times[-1] - times[1]) / (n - 2)
+    idr = state["idr_seconds"]
+    first_p = state["compile_seconds"]
+    steady = state["steady_seconds"] / state["steady_frames"]
     psnr = _psnr([a.recon for a in aus], frames)
     de265 = _de265_to_recon(enc.headers() + b"".join(a.data for a in aus),
                             aus, "main")
     log(f"  1080p: IDR {idr:.3f} s, first P {first_p:.3f} s, steady P "
-        f"{steady:.3f} s/frame ({1.0 / steady:.3f} fps), PSNR-Y "
+        f"{steady:.3f} s/frame over {state['steady_frames']} pictures "
+        f"({1.0 / steady:.3f} fps), PSNR-Y "
         f"{psnr:.3f} dB, {sum(len(a.data) for a in aus)} bytes, native "
         f"host emitter, "
         f"{'libde265 decode == recon' if de265 else 'libde265 absent'}")
+    log("  access unit seconds: " + " ".join(
+        f"{t:.3f}" for t in state["au_seconds"]))
     log("  launches per P picture: " + ", ".join(
         f"{name} {[int(c[k]) for c in per_p]}"
         for k, name in enumerate(names)))
     log(f"phase main: 1920x1080 x{n} IPPP on the card "
         f"({time.perf_counter() - t_phase:.3f} s)")
     return aus
+
+
+def bench_check_start():
+    """Start tools/torch_bench.py --gpu-cpu-check in a subprocess (its CPU
+    encode at two torch threads, beside the CPU reference workers)."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(CPU_THREADS))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "tools", "torch_bench.py"),
+         "--gpu-cpu-check"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def phase_bench(started):
+    """The benchmark's card == CPU check (bench.py's --tpu-cpu-check clip:
+    512x256 x10, make_frames(seed=11), M7, qp 32, IPPP): exit code 0,
+    identical streams, and the JAX package's bytes and sha256 for that
+    clip (phase small's clip; its 50 fps do not change the stream)."""
+    t_start, proc = started
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=BENCH_CHECK_TIMEOUT_S)
+    waited = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench --gpu-cpu-check: exit code "
+          f"{proc.returncode}\n{out}\n{err[-4000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    check(res["identical"] is True, f"bench --gpu-cpu-check: {res}")
+    check(res["bytes_device"] == SMALL_BYTES
+          and res["sha256"] == SMALL_SHA256,
+          f"bench --gpu-cpu-check: {res['bytes_device']} bytes, sha256 "
+          f"{res['sha256']} != the JAX package's {SMALL_BYTES} / "
+          f"{SMALL_SHA256}")
+    log(f"  {json.dumps(res)}")
+    log(f"phase bench: tools/torch_bench.py --gpu-cpu-check, card == CPU, "
+        f"{res['bytes_device']} bytes, sha256 match (started "
+        f"{t0 - t_start:.3f} s before this phase, waited {waited:.3f} s)")
 
 
 def phase_ra(results: dict):
@@ -2256,12 +2299,14 @@ def main() -> int:
     pool = ProcessPoolExecutor(
         max_workers=CPU_WORKERS,
         mp_context=multiprocessing.get_context("spawn"))
+    bench_job = None
     try:
         cpu_bd = pool.submit(cpu_bd_decode, bd_stream)
         cpu = {name: pool.submit(cpu_reference, job)
                for name, job in cpu_jobs().items()}
         cpu_host = pool.submit(cpu_host_helpers, host_job)
         cpu_mesh_job = pool.submit(cpu_mesh, None)
+        bench_job = bench_check_start()
         del host_job
         # the card phases that wait for no CPU reference first, while the
         # workers compute the first references
@@ -2279,7 +2324,10 @@ def main() -> int:
         phase_bd_check(bd_digests, cpu_bd)
         phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu["main"],
                         cpu["ra"], cpu["cli"])
+        phase_bench(bench_job)
     finally:
+        if bench_job is not None and bench_job[1].poll() is None:
+            bench_job[1].kill()
         pool.shutdown(wait=True, cancel_futures=True)
     src = {"sad_field": ("svt_hevc_tpu_torch/csrc/sad_field.cu",
                          "svt_hevc_tpu/tpu/pallas_kernels.py:71"),

@@ -522,12 +522,13 @@ def _pool_max(m, k: int):
 def _boxsum(m: torch.Tensor, k: int) -> torch.Tensor:
     """(..., H, W) -> (..., H//k, W//k) block sums. Integer planes sum in
     their own dtype (int32 like JAX); float32 2x2 sums of non-integer
-    costs use the fixed order (a00 + a01) + (a10 + a11)."""
+    costs add in XLA:CPU's order for a reduce over the two window axes,
+    row by row: ((a00 + a01) + a10) + a11."""
     if k == 1:
         return m
     if m.is_floating_point() and k == 2:
-        return ((m[..., 0::2, 0::2] + m[..., 0::2, 1::2])
-                + (m[..., 1::2, 0::2] + m[..., 1::2, 1::2]))
+        return (((m[..., 0::2, 0::2] + m[..., 0::2, 1::2])
+                 + m[..., 1::2, 0::2]) + m[..., 1::2, 1::2])
     s = m.shape
     r = m.reshape(*s[:-2], s[-2] // k, k, s[-1] // k, k)
     if m.is_floating_point():

@@ -1,12 +1,12 @@
-"""The fused multiply-adds of the jitted JAX graphs, in the port.
+"""The float32 arithmetic of the jitted JAX graphs, in the port.
 
 XLA:CPU contracts a float32 product that feeds an add or a subtract in
 the same fusion into one multiply-add (one rounding); eager PyTorch
 rounds the product and the sum apart. Where the product is not an
 integer the two differ in the last bit, and a cost that decides between
-two near-equal candidates can then pick the other one: at CTB 64 and qp
-27 the 1080p clip of BD_r05_1080p_ipp.json came out 6 bytes off the JAX
-package's stream. The port computes those costs with gpu.encode._fma
+two near-equal candidates can then pick the other one (pictures 19-23
+of BD_r05_1080p_ipp.json's clip at 192x128, qp 28, decided one 16x16 CU
+otherwise). The port computes those costs with gpu.encode._fma
 (float64 product and sum, rounded to float32 once). The sites are the
 f32 multiply -> add pairs inside the fusions of the jitted fused-path
 graphs (_fast_p_front / _fast_p_finish / _fast_b_front / _fast_b_finish /
@@ -14,7 +14,19 @@ fast_i_fused_dev): _rd_leaf_cost (and its intra form), _tu_rd_better,
 _tu_tree_dp and the two SAO scores; the others there add integer-valued
 products, which are exact either way. Each is held bit for bit against
 the jitted JAX function here.
+
+XLA:CPU also fixes the order of a float32 sum: a reduce over the two
+axes of a 2x2 window adds row by row, ((a00 + a01) + a10) + a11, and
+the split DPs (P, B and I quadtree decisions, the TU tree) sum their
+children's costs that way. The port summed pairwise, and at CTB 64 and
+qp 27 the 1080p clip of BD_r05_1080p_ipp.json came out 6 bytes short of
+the JAX package's stream: in P picture 22 one 16x16 CU's leaf cost
+equals its four 8x8 children's sum plus the split charge in one order
+and not in the other. That CTB's inputs to decide_tree_dev
+(tests/torch_qp27_ctb.npz) are held against the jitted JAX function.
 """
+
+import os
 
 import functools
 
@@ -31,6 +43,8 @@ from svt_hevc_tpu_torch.gpu import sao as gsao
 from tests.test_torch_encoder import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(27)
+QP27_CTB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_qp27_ctb.npz")
 
 
 def test_fma_is_xla_multiply_add():
@@ -184,3 +198,47 @@ def test_sao_scores_match_jitted_jax():
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(),
                                           np.asarray(want[k]), err_msg=k)
+
+
+def test_boxsum_f32_is_xla_2x2_order():
+    """Float32 2x2 block sums of non-integer costs, bit for bit."""
+    m = (RNG.random((64, 96)) * 10 ** RNG.integers(1, 5, (64, 96))).astype(
+        np.float32)
+    want = np.asarray(jax.jit(jenc._boxsum, static_argnums=1)(
+        jnp.asarray(m), 2))
+    got = genc._boxsum(torch.from_numpy(m), 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # and the pairwise order is not what XLA computes
+    pair = (m[0::2, 0::2] + m[0::2, 1::2]) + (m[1::2, 0::2] + m[1::2, 1::2])
+    assert not np.array_equal(pair, want)
+
+
+def test_split_dp_qp27_ctb_matches_jitted_jax():
+    """decide_tree_dev on the port's own inputs at CTB (10, 4) of P picture
+    22 of BD_r05_1080p_ipp.json's clip at qp 27 (CTB 64, M7), cropped to
+    that CTB: the 16x16 CU at (16, 32) in it ties with its four 8x8
+    children in the pairwise sum and splits in XLA's order."""
+    z = np.load(QP27_CTB)
+    md = {k: z[k].astype(np.int32) for k in
+          ("mv8", "mv16", "mv32", "mv64", "sad8", "sad16", "sad32",
+           "sad64", "zsad8")}
+    src, ref = z["src_y"].astype(np.int32), z["ref_y"].astype(np.int32)
+    qp, tb, td = int(z["qp"]), int(z["tb"]), int(z["td"])
+    h, w = src.shape
+    want = jax.jit(functools.partial(
+        jenc.decide_tree_dev, ctb_log2=6, min_intra_log2=6, w=w, h=h,
+        bit_depth=8))(
+        {k: jnp.asarray(v) for k, v in md.items()}, {}, qp=jnp.int32(qp),
+        src=jnp.asarray(src), ref=jnp.asarray(ref),
+        col_mv8=jnp.asarray(z["col_mv"].astype(np.int32)),
+        col_valid8=jnp.asarray(z["col_valid"]), tb=jnp.int32(tb),
+        td=jnp.int32(td))
+    got = genc.decide_tree_dev(
+        {k: torch.from_numpy(v) for k, v in md.items()}, {}, 6,
+        min_intra_log2=6, w=w, h=h, qp=qp, src=torch.from_numpy(src),
+        ref=torch.from_numpy(ref), bit_depth=8,
+        col_mv8=torch.from_numpy(z["col_mv"].astype(np.int32)),
+        col_valid8=torch.from_numpy(z["col_valid"]), tb=tb, td=td)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    assert (got[0][4:6, 2:4] == 3).all()
