@@ -4,12 +4,14 @@
 
 Phases (one line each, with seconds; any failure exits nonzero). The
 timed card phases (kernels, main, ra, cli_1080p, host_1080p,
-leaves_1080p, bd_1080p) run first with nothing else on the host; then
-the CPU reference encodes of every check run in worker processes while
-the card encodes the small clips (first the leaf clips and phase
-leaves_check, which wait for no CPU reference). Every 4:2:0 stream that is decoded below is also
-decoded by libde265 (through the port's binding) where the library is
-installed, and must give the recon:
+leaves_1080p, bd_1080p) run first with nothing else on the host, and
+each holds its whole 1080p stream to the JAX package's bytes and sha256
+(JAX_1080P); then the CPU reference encodes of the small clips run in
+worker processes while the card encodes the small clips (first the leaf
+clips and phase leaves_check, which wait for no CPU reference). Every
+4:2:0 stream that is decoded below is also decoded by libde265 (through
+the port's binding) where the library is installed, and must give the
+recon:
   1. card      name / power limit (nvidia-smi), versions, and whether
                libde265 is installed
   2. build     nvcc builds of the CUDA kernels (csrc/), all at once, with
@@ -19,7 +21,8 @@ installed, and must give the recon:
                card at the 1080p main-path shapes (torch.equal), the
                batched K2 shapes the callers use included (K=13 and the
                B path's K=9 of the CTB-64 merge snaps too), 8-bit and
-               10-bit (K1 and K2 timed at both), with two
+               10-bit (K1 and K2 timed at both), K3 at the lookahead's
+               1080p shape (5202 chains of 135 window sums), with two
                times per variant: device_ms, the kernel's time (CUDA
                events around R_LAUNCHES back-to-back launches, over R),
                and call_ms, the host-inclusive time of one wrapper call
@@ -28,12 +31,13 @@ installed, and must give the recon:
   4. main      1920x1080 x 5 frames, M7, qp 32, IPPP, on the card: IDR /
                first P / steady P seconds from the benchmark's own timed
                loop (tools/torch_bench.py's timed_encode; steady P over
-               access units 3 and 4), kernel launches per P picture
-               (all > 0), recon PSNR, libde265 decode == recon
+               access units 3 and 4), K1 / K2 launches per P picture
+               (all > 0), recon PSNR, libde265 decode == recon, the
+               stream == JAX_1080P["main"]
   5. ra        1920x1080 x 5 frames, M7, qp 32, random access (hl=2: I0
                P4 B2 B1 B3), on the card: IDR, P-anchor and per-layer B
-               seconds per picture, kernel launches per B picture (all >
-               0), recon PSNR
+               seconds per picture, K1 / K2 launches per B picture (all >
+               0), recon PSNR, the stream == JAX_1080P["ra"]
   6. cli_1080p the command line (svt_hevc_tpu_torch.app's main, in a
                subprocess on the card) on a seeded 1920x1080 10-bit raw
                clip of 5 frames with new textured ramps on the odd
@@ -44,9 +48,10 @@ installed, and must give the recon:
                wavefront steps they ran (at least one) and its seconds,
                the host's wait in the any_intra read, QP per picture,
                kbit/s against the target, K1 / K2 launches per P picture
-               (all > 0), PSNR-Y, decode == recon; lookahead_stats card
-               == CPU on the clip's batch and its time at batches of 6
-               and 37 frames
+               (all > 0), K3's launches in the lookahead (> 0), PSNR-Y,
+               decode == recon, the CLI's file == JAX_1080P["cli_1080p"];
+               lookahead_stats card == CPU on the clip's batch (every
+               output) and its time at batches of 6 and 37 frames
   7. host_1080p
                the host path's target configuration: 1920x1080 x 3
                frames, M7, qp 32, IPPP, 2x2 tiles, improve_sharpness
@@ -54,7 +59,8 @@ installed, and must give the recon:
                seconds and bytes per picture, K1 launches per picture
                (the motion seed, > 0 in each P picture), the QP maps, the
                synchronized stage split (dev_me_field, ois_maps, qp_map,
-               pass 1, DLF + SAO, pass 2, CABAC), decode == recon; the
+               pass 1, DLF + SAO, pass 2, CABAC), decode == recon, the
+               stream == JAX_1080P["host_1080p"]; the
                device times of ois_packed, ctb_activity and denoise_plane
                (8 and 10 bits) at 1920x1088
   8. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
@@ -104,7 +110,8 @@ installed, and must give the recon:
                parallel.pictures.lane_devices set to two lanes on cuda:0:
                seconds and kernel launches of each picture's encode_frame
                and of the lane dispatch apart, launches per leaf (K1 3,
-               K2 13), libde265 decode == recon; phase leaves_check
+               K2 13), libde265 decode == recon, the stream ==
+               JAX_1080P["leaves_1080p"]; phase leaves_check
                (untimed, beside the CPU references): the stream == the
                same encode without lanes
  16. bd_1080p  the BD artifacts' configuration at full width: the clip of
@@ -115,7 +122,8 @@ installed, and must give the recon:
                68573 bytes and the recon its PSNR-Y 39.331 dB (the JAX
                package's, from the CPU); IDR seconds and its wavefront
                steps (64 * 62 = 3968), seconds per P picture, K1 / K2
-               launches per P picture (all > 0); phase bd_check (at the
+               launches per P picture (all > 0), the stream ==
+               JAX_1080P["bd_1080p"]; phase bd_check (at the
                end): the port's decoder, in a worker, gives back the
                recon, with the same PSNR-Y
  17. small_leaves
@@ -133,16 +141,14 @@ installed, and must give the recon:
                gop_encode_step on 2 x 256x256 == fast_p_fused_packed per
                picture == the same steps over gloo on the CPU (a worker);
                frontend_step's total finite and == the CPU's (rtol 1e-9)
- 19. cpu_1080p the main phase's I + P access units equal to a CPU encode
-               of the first two frames; the ra phase's I0, P4 and B2
-               access units equal to the first three of a CPU encode of
-               the same frames; the cli_1080p stream's I + P access units
-               equal to the first two of a CPU encode of its 5 frames
-               (the lookahead sees the same frames)
- 20. bench     tools/torch_bench.py --gpu-cpu-check in a subprocess
+ 19. bench     tools/torch_bench.py --gpu-cpu-check in a subprocess
                (started with the CPU workers): exit code 0, the card's
                and the CPU's streams of bench.py's check clip identical,
-               with the JAX package's 19785 bytes and sha256
+               with the JAX package's 19785 bytes and sha256; and
+               tools/torch_bench.py itself in a second subprocess: its
+               64-frame 1080p stream == JAX_1080P["bench"], decode ==
+               recon (its times, taken beside the small-clip phases, are
+               not kept)
 The line before the last is the kernel JSON, the last line the device
 JSON. Imports nothing of JAX.
 
@@ -298,18 +304,47 @@ BD_IDR_STEPS = 64 * (2 * 16 + 30)
 MESH_HW = 256
 MESH_B = 2
 
+# The JAX package's whole 1080p streams of the card's phases: (bytes,
+# sha256) of main (bench.py's configuration, x5), bench (the same at
+# tools/torch_bench.py's 64 frames), ra (x5, RA_KW), cli_1080p (the
+# command line's file), host_1080p (x3, HOST_KW), leaves_1080p (x5,
+# LEAVES_KW; on one device mesh_pictures changes nothing, so it is the hl=1
+# stream) and bd_1080p (BD_ARTIFACT's clip and configuration at BD_QP,
+# x24); computed on the CPU by tests/test_torch_parity_1080p.py (its
+# script mode), each under three fresh compiles of the JAX graphs (the
+# compile cache off; the host's default ISA, AVX-512, and XLA's ISA
+# capped at AVX2 and at SSE4_2), which gave the same streams
+JAX_1080P = {
+    "main": (206499, "168aeb85411c998c54587ed0fc9bc194"
+              "f9927826c1ee033906b09c079444205e"),
+    "bench": (496981, "98ce6e469a20fedd7630b062c88a33eb"
+               "b8644f95ef6c4e70189e3d749b598971"),
+    "ra": (205830, "e948743fca467a1b4322c5ac451648f3"
+            "fdb78921f928b2bb7d46f8e1c3717023"),
+    "cli_1080p": (233793, "e488dade920658b8ef675f04a00d87c1"
+                   "a7e1ea80c451812fe3255c130e7db2db"),
+    "host_1080p": (234903, "f74f3f9a9dd5c963198106f106d66d3f"
+                    "b5420ed122856e547596ec08db3b315c"),
+    "leaves_1080p": (206464, "2c74ff17fc923aed27b14095da564db7"
+                      "78efe1c61804fff0122ad03e69b168f6"),
+    "bd_1080p": (68573, "edfbe63d84ca6593fb737d0a72992945"
+                  "a7a54b20d6cbabe8a21f8b8eb79a8d42"),
+}
+
 # launches per device-time sample (CUDA events around a run of many
 # launches)
 R_LAUNCHES = 200
 
 # worker processes (and torch threads in each) for the CPU reference
-# encodes: most of a CPU encode is the IDR's sequential wavefront of small
-# steps, which more threads do not speed up; three workers take the
-# three 1080p references, the others the small clips
+# encodes of the small clips: most of a CPU encode is the IDR's
+# sequential wavefront of small steps, which more threads do not speed up
+# (the 1080p streams are held to JAX_1080P instead)
 CPU_WORKERS = 5
 CPU_THREADS = 2
-# phase bench's subprocess (tools/torch_bench.py --gpu-cpu-check)
+# phase bench's subprocesses (tools/torch_bench.py --gpu-cpu-check, then
+# the benchmark itself)
 BENCH_CHECK_TIMEOUT_S = 600
+BENCH_RUN_TIMEOUT_S = 600
 
 RA_KW = dict(pred_structure=2, hierarchical_levels=2)
 # (config, frames) of phase variants, 512x256
@@ -473,6 +508,23 @@ def bound(nbytes: float, ops: float):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"FAIL: {what}")
+
+
+def check_jax_stream(name: str, stream: bytes) -> str:
+    """Fail unless stream is the JAX package's whole stream of phase
+    name (JAX_1080P); returns the log's words for it."""
+    n, sha = JAX_1080P[name]
+    got = hashlib.sha256(stream).hexdigest()
+    check(len(stream) == n and got == sha,
+          f"{name}: {len(stream)} bytes, sha256 {got}; the JAX package's "
+          f"stream is {n} bytes, sha256 {sha}")
+    return f"== the JAX package's stream ({n} bytes, sha256 {sha[:12]}...)"
+
+
+def _picture_kernels(K):
+    """The kernels every fused P / B picture launches (K1, K2); K3 runs in
+    the lookahead only."""
+    return (K.SAD_FIELD, K.MC_BLOCK)
 
 
 def phase_card():
@@ -778,6 +830,24 @@ def phase_kernels(results: dict):
     log(f"  K2 mc_block CTB-64 luma bd=8 rounded K=13 (merge_snap) -> "
         f"{'x'.join(map(str, out.shape))}: equal, {_fmt(k2_64)}; 14-bit "
         f"K=9 (merge_snap_b): equal")
+    # ---- K3 at the lookahead's 1080p shape: the 9 x 15 window sums of
+    # the 289 displacements of a batch of 18 pictures (lookahead 8), each
+    # a float32 sum of whole sixteenths below 2^20, whose chain passes
+    # 2^24 and rounds
+    rng = np.random.default_rng(8)
+    parts = torch.from_numpy((rng.integers(0, 1 << 24, (289 * 18, 135))
+                              / 16.0).astype(np.float32)).to(dev)
+    out = K.ordered_sum(parts)
+    want = K.ordered_sum_ref(parts)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "K3 ordered_sum differs from plain")
+    k3 = time_kernel(lambda: K.ordered_sum(parts),
+                     lambda: K.ordered_sum_ref(parts),
+                     4 * (parts.numel() + out.numel()), parts.numel())
+    results["ordered_sum"] = dict(k3, max_abs_err=float(
+        (out - want).abs().max()))
+    log(f"  K3 ordered_sum {parts.shape[0]} chains of {parts.shape[1]}: "
+        f"equal, {_fmt(k3)}")
     b1, by1 = bound(k1["bytes"], k1["ops"])
     b10, by10 = bound(k1_10["bytes"], k1_10["ops"])
     results["sad_field"] = {
@@ -792,7 +862,8 @@ def phase_kernels(results: dict):
                                b_launch=k2b, bd10=k2_10,
                                ctb64_launch=k2_64)
     log(f"phase kernels: K1 x3 levels at 8 and 10 bits, K2 x8 one-field, "
-        f"x8 batched, the B-shaped and the CTB-64 variants equal to plain; "
+        f"x8 batched, the B-shaped and the CTB-64 variants, K3 at the "
+        f"lookahead's 1080p shape equal to plain; "
         f"device_ms "
         f"over "
         f"{R_LAUNCHES} launches "
@@ -832,8 +903,7 @@ def cpu_reference(job):
     frames (n, width, height, make_frames seed, make_frames arguments),
     kw (the config), n_aus, mode (plain; speed: speed control toward 1e9
     fps; ckpt_cpu: also the first 3 pictures' access units and the
-    pickled checkpoint after them; cli: the config the command line's
-    tokens select). Returns (headers, access-unit bytes, seconds, extra)."""
+    pickled checkpoint after them; sov: segment overrides). Returns (headers, access-unit bytes, seconds, extra)."""
     import pickle
 
     import torch
@@ -844,12 +914,7 @@ def cpu_reference(job):
     frames = make_frames(n, w, h, seed=seed, **fkw)
     mode = job.get("mode", "plain")
     extra = None
-    if mode == "cli":
-        from svt_hevc_tpu_torch import app
-        cfg = app.config_from_args(app.build_parser().parse_args(
-            ["-i", "-", "-b", "-", *CLI_TOKENS]), w, h)
-        hdr, aus = _encode_cfg(cfg, frames, "cpu", n_aus=job["n_aus"])
-    elif mode == "speed":
+    if mode == "speed":
         enc = Encoder(_cfg(w, h, **job["kw"]), device="cpu")
         enc.set_speed_control(1e9)
         hdr, aus = enc.headers(), list(enc.encode_pictures(frames))
@@ -874,11 +939,7 @@ def cpu_jobs() -> dict:
         return {"frames": (n, w, h, seed, fkw or {}), "kw": kw,
                 "n_aus": n_aus, "mode": mode}
 
-    jobs = {"ra": job(5, 1920, 1080, 7, dict(RA_KW, fps_num=50), 3),
-            "cli": job(CLI_FRAMES, 1920, 1080, 7, {}, 2,
-                       dict(patches=True, bit_depth=10), "cli"),
-            "main": job(2, 1920, 1080, 7, dict(fps_num=50)),
-            "small": job(10, 512, 256, 11, {}),
+    jobs = {"small": job(10, 512, 256, 11, {}),
             "small_ra": job(9, 512, 256, 11, RA_KW)}
     for name, (kw, n, fkw, _, _) in SMALL_NEW.items():
         jobs[name] = job(n, 512, 256, 11, kw, fkw=fkw)
@@ -1032,10 +1093,10 @@ def phase_main(results: dict):
     n = 5
     frames = make_frames(n, 1920, 1080, seed=7)
     enc = Encoder(tool.bench_config())
-    names = [k.name for k in K.KERNELS]
+    names = [k.name for k in _picture_kernels(K)]
 
     def counts():
-        return np.array([k.launches for k in K.KERNELS])
+        return np.array([k.launches for k in _picture_kernels(K)])
 
     K.reset_launches()
     c_start = counts()
@@ -1058,8 +1119,9 @@ def phase_main(results: dict):
     first_p = state["compile_seconds"]
     steady = state["steady_seconds"] / state["steady_frames"]
     psnr = _psnr([a.recon for a in aus], frames)
-    de265 = _de265_to_recon(enc.headers() + b"".join(a.data for a in aus),
-                            aus, "main")
+    stream = enc.headers() + b"".join(a.data for a in aus)
+    same = check_jax_stream("main", stream)
+    de265 = _de265_to_recon(stream, aus, "main")
     log(f"  1080p: IDR {idr:.3f} s, first P {first_p:.3f} s, steady P "
         f"{steady:.3f} s/frame over {state['steady_frames']} pictures "
         f"({1.0 / steady:.3f} fps), PSNR-Y "
@@ -1071,33 +1133,43 @@ def phase_main(results: dict):
     log("  launches per P picture: " + ", ".join(
         f"{name} {[int(c[k]) for c in per_p]}"
         for k, name in enumerate(names)))
+    log(f"  stream {same}")
     log(f"phase main: 1920x1080 x{n} IPPP on the card "
         f"({time.perf_counter() - t_phase:.3f} s)")
     return aus
 
 
 def bench_check_start():
-    """Start tools/torch_bench.py --gpu-cpu-check in a subprocess (its CPU
-    encode at two torch threads, beside the CPU reference workers)."""
+    """Start tools/torch_bench.py --gpu-cpu-check (its CPU encode at two
+    torch threads) and the benchmark itself (its 64-frame 1080p stream
+    on the card) in two subprocesses, beside the CPU reference workers."""
     env = dict(os.environ, OMP_NUM_THREADS=str(CPU_THREADS))
-    return time.perf_counter(), subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "tools", "torch_bench.py"),
-         "--gpu-cpu-check"], cwd=HERE, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env)
+    tool = os.path.join(HERE, "tools", "torch_bench.py")
+    return time.perf_counter(), [
+        subprocess.Popen([sys.executable, tool, *args], cwd=HERE,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env=env)
+        for args in (["--gpu-cpu-check"], [])]
+
+
+def _last_json(proc, timeout: float, what: str) -> dict:
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"{what}: exit code {proc.returncode}\n"
+          f"{out[-4000:]}\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def phase_bench(started):
     """The benchmark's card == CPU check (bench.py's --tpu-cpu-check clip:
     512x256 x10, make_frames(seed=11), M7, qp 32, IPPP): exit code 0,
     identical streams, and the JAX package's bytes and sha256 for that
-    clip (phase small's clip; its 50 fps do not change the stream)."""
-    t_start, proc = started
+    clip (phase small's clip; its 50 fps do not change the stream). Then
+    the benchmark's own run: its whole 64-frame 1080p stream is the JAX
+    package's (JAX_1080P["bench"]) and decodes to its recon. Its times
+    were taken beside the small-clip phases and are not kept."""
+    t_start, (proc, run) = started
     t0 = time.perf_counter()
-    out, err = proc.communicate(timeout=BENCH_CHECK_TIMEOUT_S)
-    waited = time.perf_counter() - t0
-    check(proc.returncode == 0, f"bench --gpu-cpu-check: exit code "
-          f"{proc.returncode}\n{out}\n{err[-4000:]}")
-    res = json.loads(out.strip().splitlines()[-1])
+    res = _last_json(proc, BENCH_CHECK_TIMEOUT_S, "bench --gpu-cpu-check")
     check(res["identical"] is True, f"bench --gpu-cpu-check: {res}")
     check(res["bytes_device"] == SMALL_BYTES
           and res["sha256"] == SMALL_SHA256,
@@ -1105,9 +1177,22 @@ def phase_bench(started):
           f"{res['sha256']} != the JAX package's {SMALL_BYTES} / "
           f"{SMALL_SHA256}")
     log(f"  {json.dumps(res)}")
+    line = _last_json(run, BENCH_RUN_TIMEOUT_S, "tools/torch_bench.py")
+    check(line["phase"] == "done" and line["decode_ok"] is True,
+          f"tools/torch_bench.py: {line}")
+    n, sha = JAX_1080P["bench"]
+    check((line["bytes"], line["sha256"]) == (n, sha),
+          f"tools/torch_bench.py: {line['bytes']} bytes, sha256 "
+          f"{line['sha256']} ({line['steady_frames']} steady pictures); "
+          f"the JAX package's 64-frame stream is {n} bytes, sha256 {sha}")
+    log(f"  tools/torch_bench.py: {line['bytes']} bytes, sha256 "
+        f"{line['sha256'][:12]}..., decode_ok {line['decode_ok']} "
+        f"({line['decoder']}), {line['steady_frames']} steady pictures")
     log(f"phase bench: tools/torch_bench.py --gpu-cpu-check, card == CPU, "
-        f"{res['bytes_device']} bytes, sha256 match (started "
-        f"{t0 - t_start:.3f} s before this phase, waited {waited:.3f} s)")
+        f"{res['bytes_device']} bytes, sha256 match; the benchmark's "
+        f"1080p x64 stream == the JAX package's (started "
+        f"{t0 - t_start:.3f} s before this phase, waited "
+        f"{time.perf_counter() - t0:.3f} s)")
 
 
 def phase_ra(results: dict):
@@ -1121,10 +1206,10 @@ def phase_ra(results: dict):
     cfg = EncoderConfig(width=1920, height=1080, qp=32, fps_num=50,
                         enc_mode=7, intra_period=-1, **RA_KW)
     enc = Encoder(cfg)
-    names = [k.name for k in K.KERNELS]
+    names = [k.name for k in _picture_kernels(K)]
 
     def counts():
-        return np.array([k.launches for k in K.KERNELS])
+        return np.array([k.launches for k in _picture_kernels(K)])
 
     # random access encodes one picture per access unit (no pipelining):
     # the time and the launches between two yields are that picture's
@@ -1170,6 +1255,9 @@ def phase_ra(results: dict):
     check([(a.poc, a.slice_type) for a in aus[:3]]
           == [(0, 2), (4, 1), (2, 0)],
           "RA: the first three access units are not I0, P4, B2")
+    same = check_jax_stream(
+        "ra", enc.headers() + b"".join(a.data for a in aus))
+    log(f"  stream {same}")
     log(f"phase ra: 1920x1080 x{n} RA on the card "
         f"({time.perf_counter() - t_phase:.3f} s)")
     return aus
@@ -1333,11 +1421,12 @@ def phase_cli_1080p(results: dict):
               "cli_1080p: decoded != recon")
     names = [k.name for k in K.KERNELS]
     nk = len(names)
+    npk = len(_picture_kernels(K))
     p_rows = [row for row in rows if row["slice_type"] == 1]
     check(len(p_rows) == n - 1 and rows[0]["slice_type"] == 2,
           f"cli_1080p: not one IDR and {n - 1} P pictures")
     for row in p_rows:
-        check(all(c > 0 for c in row["counts"][:nk]),
+        check(all(c > 0 for c in row["counts"][:npk]),
               f"cli_1080p P{row['poc']}: launches {row['counts'][:nk]}")
     intra_p = [(row["poc"], row["counts"][nk + 1]) for row in p_rows
                if row["counts"][nk] > 0]
@@ -1347,6 +1436,12 @@ def phase_cli_1080p(results: dict):
                                             for row in rows)
         results[name]["launches_per_p_picture_m8"] = [
             row["counts"][k] for row in p_rows]
+    # K3's path: the lookahead of this VBR stream (counts from 0 at the
+    # encode's start in the subprocess)
+    k3 = results["ordered_sum"]
+    k3["launches"] = k3["launches_cli"]
+    check(k3["launches"] > 0, "cli_1080p: K3 ordered_sum never launched")
+    same = check_jax_stream("cli_1080p", stream)
     qps = _slice_qps(stream)
     kbps = 8 * len(stream) * 50 / n / 1000.0
     psnr = _psnr(recons, frames, peak=1023.0)
@@ -1368,23 +1463,23 @@ def phase_cli_1080p(results: dict):
         f"PSNR-Y {psnr:.3f} dB; {len(stream)} bytes")
     log("  launches per P picture: " + ", ".join(
         f"{name} {[row['counts'][k] for row in p_rows]}"
-        for k, name in enumerate(names)))
+        for k, name in enumerate(names))
+        + f"; K3 {k3['launches']} in the lookahead (with the IDR)")
+    log(f"  stream {same}")
     # the lookahead's statistics: card == CPU on this clip's batch, and
-    # the card's time at 9 and 37 frames (batches of lookahead 3 and 17)
+    # the card's time at 6 and 37 frames (the clip's batch, and a batch
+    # of lookahead 17)
     ys = torch.from_numpy(np.stack([frames[0].y] + [f.y for f in frames])
                           .astype(np.int32))
     got = lookahead_stats(ys.cuda())
     want = lookahead_stats(ys)
-    for key in ("zz_sad", "gm_sad", "gm_mv", "hist"):
+    for key in ("zz_sad", "gm_sad", "gm_mv", "hist", "variance"):
         check(torch.equal(got[key].cpu(), want[key]),
               f"lookahead_stats {key}: card != CPU")
-    rel = float(((got["variance"].cpu() - want["variance"]).abs()
-                 / want["variance"]).max())
-    check(rel <= 1e-6, f"lookahead_stats variance: card/CPU rel {rel}")
-    big = ys.cuda().repeat(5, 1, 1)[:37]
+    big = ys.cuda().repeat(7, 1, 1)[:37]
     t_b, t37 = _time_lookahead(ys.cuda()), _time_lookahead(big)
     results["lookahead_stats"] = {f"s_{ys.shape[0]}": t_b, "s_37": t37}
-    log(f"  lookahead_stats card == CPU (variance rel {rel:.2e}); card "
+    log(f"  lookahead_stats card == CPU (every output); card "
         f"{t_b * 1e3:.3f} ms per batch of {ys.shape[0]} frames, "
         f"{t37 * 1e3:.3f} ms per batch of 37")
     log(f"phase cli_1080p: 1920x1080 x{n} 10-bit M8 VBR through the command "
@@ -1615,7 +1710,7 @@ def phase_host_1080p(results: dict):
     n = HOST_FRAMES
     frames = make_frames(n, 1920, 1080, seed=7)
     enc = Encoder(_cfg(1920, 1080, **HOST_KW))
-    names = [k.name for k in K.KERNELS]
+    names = [k.name for k in _picture_kernels(K)]
     split = genc.STAGE_TIMER = _StageSplit()
     torch.cuda.synchronize()
     K.reset_launches()
@@ -1623,10 +1718,10 @@ def phase_host_1080p(results: dict):
     try:
         with _HostCapture() as cap:
             t_prev = time.perf_counter()
-            c_prev = np.array([k.launches for k in K.KERNELS])
+            c_prev = np.array([k.launches for k in _picture_kernels(K)])
             for au in enc.encode_pictures(iter(frames)):
                 t_now = time.perf_counter()
-                c_now = np.array([k.launches for k in K.KERNELS])
+                c_now = np.array([k.launches for k in _picture_kernels(K)])
                 rows.append((au, t_now - t_prev, c_now - c_prev))
                 aus.append(au)
                 t_prev, c_prev = t_now, c_now
@@ -1644,12 +1739,14 @@ def phase_host_1080p(results: dict):
           f"host_1080p: helper calls me {len(cap.me)} ois {len(cap.ois)} "
           f"act {len(cap.act)} qpm {len(cap.qpm)}")
     stream = enc.headers() + b"".join(a.data for a in aus)
+    same = check_jax_stream("host_1080p", stream)
     _decodes_to_recon(stream, aus, "host_1080p")
     psnr = _psnr([a.recon for a in aus], frames)
     log("  1080p M7 2x2 tiles + sharp, IPPP on the host path: "
         + ", ".join(f"{'IPB'[2 - a.slice_type]}{a.poc} {dt:.3f} s "
                     f"({len(a.data)} bytes)" for a, dt, _ in rows)
-        + f"; PSNR-Y {psnr:.3f} dB, {len(stream)} bytes, decode == recon")
+        + f"; PSNR-Y {psnr:.3f} dB, {len(stream)} bytes, decode == recon, "
+        f"stream {same}")
     log("  launches per picture: " + ", ".join(
         f"{name} {[int(c[k]) for _, _, c in rows]}"
         for k, name in enumerate(names)))
@@ -1797,7 +1894,7 @@ class _TwoLanes:
 
 def _launch_counts():
     from svt_hevc_tpu_torch.gpu import kernels as K
-    return np.array([k.launches for k in K.KERNELS])
+    return np.array([k.launches for k in _picture_kernels(K)])
 
 
 def phase_leaves_1080p(results: dict):
@@ -1814,7 +1911,7 @@ def phase_leaves_1080p(results: dict):
     t_phase = time.perf_counter()
     n = LEAVES_FRAMES
     frames = make_frames(n, 1920, 1080, seed=7)
-    names = [k.name for k in K.KERNELS]
+    names = [k.name for k in _picture_kernels(K)]
     enc = Encoder(_cfg(1920, 1080, **LEAVES_KW))
     rows = []
     encode_frame = enc.encode_frame
@@ -1847,6 +1944,7 @@ def phase_leaves_1080p(results: dict):
     check(list(per_leaf * n_leaves) == list(c_disp)
           and list(per_leaf) == [3, 13],
           f"leaves_1080p: launches per leaf {dict(zip(names, per_leaf))}")
+    same = check_jax_stream("leaves_1080p", stream)
     de265 = _de265_to_recon(stream, aus, "leaves_1080p")
     for k, name in enumerate(names):
         results[name]["launches_leaves"] = int(totals[k])
@@ -1866,7 +1964,8 @@ def phase_leaves_1080p(results: dict):
         f"{dict(zip(names, map(int, per_leaf)))}; encode {t_enc:.3f} s; "
         f"PSNR-Y {_psnr([a.recon for a in aus], frames):.3f} dB, "
         f"{len(stream)} bytes, "
-        f"{'libde265 decode == recon' if de265 else 'libde265 absent'}")
+        f"{'libde265 decode == recon' if de265 else 'libde265 absent'}; "
+        f"stream {same}")
     log(f"phase leaves_1080p: 1920x1080 x{n} hl=1 leaf lanes on the card "
         f"({time.perf_counter() - t_phase:.3f} s)")
     return stream
@@ -1946,7 +2045,7 @@ def phase_bd_1080p(results: dict):
           and not cfg.code_eos_nal and cfg.pred_structure == 0,
           "bd_1080p: not the artifacts' configuration")
     frames = [Frame(y.astype(np.uint8), cb, cr) for y, cb, cr in clip]
-    names = [k.name for k in K.KERNELS]
+    names = [k.name for k in _picture_kernels(K)]
     enc = Encoder(cfg)
     torch.cuda.synchronize()
     K.reset_launches()
@@ -1978,6 +2077,7 @@ def phase_bd_1080p(results: dict):
     check(round(psnr, 3) == row["ours_psnr"],
           f"bd_1080p: recon PSNR-Y {psnr:.6f} dB, artifact "
           f"{row['ours_psnr']}")
+    same = check_jax_stream("bd_1080p", stream)
     for k, name in enumerate(names):
         results[name]["launches_ctb64"] = int(totals[k])
         results[name]["launches_per_p_picture_ctb64"] = sorted(
@@ -1994,7 +2094,7 @@ def phase_bd_1080p(results: dict):
         f"(median {np.median(p_s):.3f}, mean {p_s.mean():.3f}) per picture "
         f"between access units; {len(stream)} bytes (artifact "
         f"{row['ours_bytes']}), recon PSNR-Y {psnr:.6f} dB (artifact "
-        f"{row['ours_psnr']})")
+        f"{row['ours_psnr']}), stream {same}")
     log("  launches per P picture: " + ", ".join(
         f"{name} {sorted({int(c[k]) for c in per_p})}"
         for k, name in enumerate(names)))
@@ -2241,34 +2341,6 @@ def phase_mesh(results: dict, cpu):
         f"({time.perf_counter() - t0:.3f} s)")
 
 
-def phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu_main, cpu_ra,
-                    cpu_cli):
-    """The 1080p access units of phases main, ra and cli_1080p against
-    CPU encodes: I + P of the first two frames; the first three access
-    units (I0, P4, B2) of the random-access stream, which the generator
-    yields without encoding the rest; the first two of the command line's
-    10-bit M8 VBR stream (its lookahead batch holds all 5 frames on both
-    sides)."""
-    t0 = time.perf_counter()
-    _, aus_c, t_main, _ = cpu_main.result()
-    for i in range(2):
-        check(main_aus[i].data == aus_c[i],
-              f"1080p AU {i}: card bytes != CPU bytes")
-    _, aus_c, t_ra, _ = cpu_ra.result()
-    for i in range(3):
-        check(ra_aus[i].data == aus_c[i],
-              f"1080p RA AU {i} (POC {ra_aus[i].poc}): card bytes != CPU "
-              f"bytes")
-    hdr_c, aus_c, t_cli, _ = cpu_cli.result()
-    check(cli_stream.startswith(hdr_c + aus_c[0] + aus_c[1]),
-          "1080p cli I + P access units: card bytes != CPU bytes")
-    log(f"phase cpu_1080p: main I + P access units == CPU encode (CPU "
-        f"{t_main:.3f} s in a worker), ra I0 + P4 + B2 access units == CPU "
-        f"encode (CPU {t_ra:.3f} s in a worker), cli_1080p I + P access "
-        f"units == CPU encode (CPU {t_cli:.3f} s in a worker) "
-        f"({time.perf_counter() - t0:.3f} s)")
-
-
 def main() -> int:
     try:
         import torch
@@ -2288,9 +2360,9 @@ def main() -> int:
     phase_build()
     results: dict = {}
     phase_kernels(results)
-    main_aus = phase_main(results)
-    ra_aus = phase_ra(results)
-    cli_stream = phase_cli_1080p(results)
+    phase_main(results)
+    phase_ra(results)
+    phase_cli_1080p(results)
     host_job, host_card = phase_host_1080p(results)
     leaves_stream = phase_leaves_1080p(results)
     bd_stream, bd_digests = phase_bd_1080p(results)
@@ -2322,17 +2394,19 @@ def main() -> int:
         phase_mesh(results, cpu_mesh_job)
         phase_host_check(host_card, cpu_host)
         phase_bd_check(bd_digests, cpu_bd)
-        phase_cpu_1080p(main_aus, ra_aus, cli_stream, cpu["main"],
-                        cpu["ra"], cpu["cli"])
         phase_bench(bench_job)
     finally:
-        if bench_job is not None and bench_job[1].poll() is None:
-            bench_job[1].kill()
+        for proc in (bench_job[1] if bench_job is not None else ()):
+            if proc.poll() is None:
+                proc.kill()
         pool.shutdown(wait=True, cancel_futures=True)
     src = {"sad_field": ("svt_hevc_tpu_torch/csrc/sad_field.cu",
                          "svt_hevc_tpu/tpu/pallas_kernels.py:71"),
            "mc_block": ("svt_hevc_tpu_torch/csrc/mc_block.cu",
-                        "svt_hevc_tpu/tpu/pallas_kernels.py:182")}
+                        "svt_hevc_tpu/tpu/pallas_kernels.py:182"),
+           # no Pallas kernel: XLA's float32 reduce of the lookahead SADs
+           "ordered_sum": ("svt_hevc_tpu_torch/csrc/ordered_sum.cu",
+                           "svt_hevc_tpu/tpu/analysis.py:233")}
     rows = []
     for name in ("sad_field", "mc_block"):
         r = results[name]
@@ -2359,6 +2433,15 @@ def main() -> int:
             if launch in r:
                 row[launch] = {k: r[launch][k] for k in keys}
         rows.append(row)
+    r = results["ordered_sum"]
+    rows.append({"name": "ordered_sum", "route": "cuda",
+                 "source": src["ordered_sum"][0],
+                 "replaces": src["ordered_sum"][1],
+                 "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                 "ms": r["device_ms"], "device_ms": r["device_ms"],
+                 "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": None, "launches_cli": r["launches_cli"]})
     log(f"card: {card}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

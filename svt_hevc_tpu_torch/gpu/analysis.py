@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .intra_weights import mode_weight_matrix
+from .kernels import ordered_sum
 
 
 def _hadamard(n: int) -> np.ndarray:
@@ -121,13 +122,60 @@ def _inv_f32(count: int, device) -> torch.Tensor:
     return torch.tensor(1.0 / count, dtype=torch.float32, device=device)
 
 
-def _mean_f32(units: torch.Tensor, scale: int, count: int) -> torch.Tensor:
-    """float32 mean of values given as exact int64 sums in 1/scale units:
-    the sum converted to float32 once, times the float32 reciprocal of
-    the count, which is what the JAX graph's float32 mean gives whenever
-    its own float32 sum is exact (below 2^24 units)."""
-    s = (units.to(torch.float64) / scale).to(torch.float32)
-    return s * _inv_f32(count, units.device)
+def xla_window_sums(units: torch.Tensor) -> torch.Tensor:
+    """The first level of XLA:CPU's float32 reduce over the last two axes
+    of an integer tensor, as exact int64 sums flattened row-major to
+    (..., windows): where an axis is longer than 32, the plane is padded
+    with zeros to multiples of 32 (the lower half of the padding first)
+    and summed in 32x32 windows; a plane of at most 32x32 is its own
+    values. XLA sums a window in a vectorized order that follows the
+    compiling host's ISA, so its window sums equal these exact ones only
+    while they stay below 2^24 units: at 8 and 10 bits every window of
+    the lookahead's decimated SADs does (at most 1024 * 1023 * 16)."""
+    h, w = units.shape[-2:]
+    lead = units.shape[:-2]
+    if h <= 32 and w <= 32:
+        return units.to(torch.int64).reshape(*lead, h * w)
+    ph, pw = -h % 32, -w % 32
+    u = torch.nn.functional.pad(units, (pw // 2, pw - pw // 2, ph // 2,
+                                        ph - ph // 2))
+    return u.reshape(*lead, (h + ph) // 32, 32, (w + pw) // 32, 32).sum(
+        (-3, -1), dtype=torch.int64).reshape(*lead, -1)
+
+
+def xla_sum_f32(parts: torch.Tensor, scale: int) -> torch.Tensor:
+    """float32 sums of xla_window_sums' windows (in 1/scale units), added
+    one after another in row-major order from 0, as XLA:CPU reduces the
+    window sums (kernels.ordered_sum). With exact window sums the result
+    equals the jitted JAX sum bit for bit under every vector ISA the
+    graph is compiled for (held by tests/test_torch_float32_sites.py at
+    1080p, where the chain passes 2^24 units; a grid of more than 32 x 32
+    windows, a plane beyond 4096 x 4096 values, is not held)."""
+    return ordered_sum((parts.to(torch.float64) / scale).to(torch.float32))
+
+
+def _mean_f32(parts: torch.Tensor, scale: int, count: int) -> torch.Tensor:
+    """The float32 mean XLA computes of count values given by their
+    window sums (xla_window_sums) in 1/scale units: xla_sum_f32 times the
+    float32 reciprocal of the count."""
+    return xla_sum_f32(parts, scale) * _inv_f32(count, parts.device)
+
+
+def exact_variance_f32(y: torch.Tensor) -> torch.Tensor:
+    """The population variance of each integer plane of y (..., H, W),
+    from its exact integer moments, rounded to float32 once: with S the
+    sum, N the count, q = S // N and r = S - q N, the int64 sum T of
+    (y - q)^2 gives the variance T / N - (r / N)^2 in float64 (IEEE
+    operations, so the same bits on the card and on the CPU)."""
+    h, w = y.shape[-2:]
+    n = h * w
+    yi = y.to(torch.int64)
+    s = yi.sum((-2, -1))
+    q = torch.div(s, n, rounding_mode="floor")
+    d = yi - q[..., None, None]
+    t = (d * d).sum((-2, -1))
+    m = (s - q * n).to(torch.float64) / n
+    return (t.to(torch.float64) / n - m * m).to(torch.float32)
 
 
 def lookahead_stats(ys: torch.Tensor) -> dict:
@@ -141,24 +189,25 @@ def lookahead_stats(ys: torch.Tensor) -> dict:
     search, first minimum in the JAX displacement order, gm_mv = [dx, dy]
     full-pel), variance and 32-bin histograms.
 
-    Exactness: the decimated planes are integer 4x4 sums (1/16 units of
-    the JAX float32 means, which are exact), and every SAD is an exact
-    int64 sum converted to float32 once (_mean_f32), so the card and the
-    CPU agree at any size. The JAX graph sums in float32, so it agrees
-    bit for bit while a SAD's sum stays below 2^24 sixteenths (128x64 at
-    any content and bit depth; 1080p only while the mean decimated
-    difference stays below 8 samples); above that XLA's float32
-    accumulation rounds in an order of its own and this port keeps the
-    exact value. The variance's squared deviations are float32 as in
-    JAX, summed in float64 and rounded to float32 once (JAX: a float32
-    reduction), so it can differ from JAX in the last bits of float32."""
+    The decimated planes are integer 4x4 sums (1/16 units of the JAX
+    float32 means, which are exact). zz_sad and gm_sad equal the jitted
+    JAX values bit for bit under every compile: the SADs are summed in
+    XLA's order (exact 32x32 window sums, xla_window_sums, then one
+    float32 chain over the windows, xla_sum_f32: K3 on the card), which
+    decides their rounding
+    once a SAD passes 2^24 sixteenths (1080p with a mean decimated
+    difference above 8 samples). The variance is host-dependent in the
+    reference: XLA's inner order of its float32 sum of squares follows
+    the compiling host's vector ISA. The port keeps the exact variance
+    rounded once (exact_variance_f32); the JAX values lie within a few
+    float32 ulps of it at test sizes and within a few tens at 1080p
+    (tests/test_torch_float32_sites.py states the spreads)."""
     t, h, w = ys.shape
     hd, wd = h // 4, w // 4
     n_dec = hd * wd
     yi = ys.to(torch.int32)
     dec = yi.reshape(t, hd, 4, wd, 4).sum((2, 4), dtype=torch.int32)
-    zz_u = (dec[1:] - dec[:-1]).abs().sum((1, 2), dtype=torch.int64)
-    zz = _mean_f32(zz_u, 16, n_dec)
+    zz = _mean_f32(xla_window_sums((dec[1:] - dec[:-1]).abs()), 16, n_dec)
 
     r = _GM_R
     s2 = 2 * r + 1
@@ -172,19 +221,15 @@ def lookahead_stats(ys: torch.Tensor) -> dict:
     for dy in range(s2):
         band = pad[:, dy:dy + hd]
         sh = torch.stack([band[:, :, dx:dx + wd] for dx in range(s2)])
-        rows.append((cur[None] - sh).abs().sum((2, 3), dtype=torch.int64))
-    sads = _mean_f32(torch.cat(rows), 16, n_dec)           # (289, T-1)
+        rows.append(xla_window_sums((cur[None] - sh).abs()))
+    sads = _mean_f32(torch.cat(rows), 16, n_dec)            # (289, T-1)
     gm_sad = sads.min(0).values
     idx = torch.arange(s2 * s2, device=ys.device)[:, None].expand_as(sads)
     k = torch.where(sads == gm_sad[None], idx, s2 * s2).min(0).values
     gm_mv = torch.stack([(k % s2 - r) * 4, (k // s2 - r) * 4],
                         -1).to(torch.int32)
 
-    n_pix = h * w
-    mean = _mean_f32(yi.sum((1, 2), dtype=torch.int64), 1, n_pix)
-    dev = yi.to(torch.float32) - mean[:, None, None]
-    sq = (dev * dev).to(torch.float64)
-    var = sq.sum((1, 2)).to(torch.float32) * _inv_f32(n_pix, ys.device)
+    var = exact_variance_f32(yi)
     bins = torch.clamp(yi >> 3, 0, 31).to(torch.int64)
     hist = torch.stack([torch.bincount(b.reshape(-1), minlength=32)
                         for b in bins]).to(torch.int32)
@@ -266,11 +311,16 @@ def denoise_plane(p: torch.Tensor, maxval: int = 255):
 
     Exactness: the blurs are exact at 8 bits (_binomial5); at 10 bits the
     second blur's last pass rounds, in the same order as the JAX graph's.
-    The residual sum is exact here (an int64 count of 1/256 units) and
-    rounded to float32 once, so the card equals the CPU at any size; the
-    JAX graph sums in float32, which equals it while that sum stays
-    below 2^24 units (small planes or little noise). 3 sigma + 1 is
-    rounded once, as XLA's fused multiply-add does."""
+    sigma is host-dependent in the reference: the JAX graph sums the
+    flat residuals in float32, in 32x32 windows whose inner order
+    follows the compiling host's vector ISA, so once that sum passes
+    2^24 units of 1/256 its last bits depend on the host (1080p chroma
+    planes differ by up to 2 ulps between compiles). The port keeps the
+    exact value: the residual sum is an int64 count of 1/256 units, and
+    sigma = sum / (flat count + 1) is computed in float64 and rounded to
+    float32 once, so the card equals the CPU at any size and the JAX
+    graph wherever its sums are exact. 3 sigma + 1 is rounded once, as
+    XLA's fused multiply-add does."""
     yf = p.to(torch.float32)
     weak = _binomial5(yf)
     strong = _binomial5(weak)
@@ -279,9 +329,8 @@ def denoise_plane(p: torch.Tensor, maxval: int = 255):
     gy = torch.diff(yf, dim=0, prepend=yf[:1, :]).abs()
     flat = (gx + gy) < float(np.float32(0.06 * maxval))
     units = torch.where(flat, resid * 256.0, 0.0).to(torch.int64).sum()
-    num = (units.to(torch.float64) / 256.0).to(torch.float32)
-    den = flat.sum().to(torch.float32) + 1.0
-    sigma = num / den
+    den = flat.sum().to(torch.float64) + 1.0
+    sigma = (units.to(torch.float64) / 256.0 / den).to(torch.float32)
     thr = (3.0 * sigma.to(torch.float64) + 1.0).to(torch.float32)
 
     def clamped(f):

@@ -2,16 +2,19 @@
 
 K1 ``sad_field`` (csrc/sad_field.cu) replaces the Pallas
 ``sad_field_pallas``; K2 ``mc_block`` (csrc/mc_block.cu) replaces
-``mc_block_pallas``. Each source is compiled by hand with nvcc for sm_90a
-into ``build/`` at the repository root on first use and bound with
-ctypes (plain C entry points; pointers and the stream as c_void_p).
+``mc_block_pallas``. K3 ``ordered_sum`` (csrc/ordered_sum.cu) is the
+counterpart of an XLA:CPU reduction, not of a Pallas kernel: float32
+sums in XLA's order where that order decides the rounding. Each source
+is compiled by hand with nvcc for sm_90a into ``build/`` at the
+repository root on first use and bound with ctypes (plain C entry
+points; pointers and the stream as c_void_p).
 
 Beside each kernel sits its plain PyTorch version (``sad_field_ref``,
-``mc_block_ref``). A wrapper takes the plain version only for tensors
-that lie on the CPU; for a CUDA tensor it launches the kernel or raises.
-Every launch adds one to the kernel's ``launches`` count. The build runs
-ptxas verbosely; each kernel keeps its compiler output (registers, shared
-memory, spills) in ``build_log``.
+``mc_block_ref``, ``ordered_sum_ref``). A wrapper takes the plain version
+only for tensors that lie on the CPU; for a CUDA tensor it launches the
+kernel or raises. Every launch adds one to the kernel's ``launches``
+count. The build runs ptxas verbosely; each kernel keeps its compiler
+output (registers, shared memory, spills) in ``build_log``.
 """
 
 from __future__ import annotations
@@ -72,13 +75,16 @@ class CudaKernel:
         fn.argtypes = self.argtypes
         self._fn = fn
 
+    def stale(self) -> bool:
+        """Whether the library is missing or older than its source."""
+        src = os.path.join(CSRC, self.source)
+        return (not os.path.exists(self.lib_path)
+                or os.path.getmtime(self.lib_path) < os.path.getmtime(src))
+
     def fn(self):
         with self._lock:
             if self._fn is None:
-                src = os.path.join(CSRC, self.source)
-                if (not os.path.exists(self.lib_path)
-                        or os.path.getmtime(self.lib_path)
-                        < os.path.getmtime(src)):
+                if self.stale():
                     build_all([self])
                 self._load()
         return self._fn
@@ -99,7 +105,9 @@ SAD_FIELD = CudaKernel("sad_field", "sad_field.cu", "sad_field_launch",
 MC_BLOCK = CudaKernel("mc_block", "mc_block.cu", "mc_block_launch",
                       [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _I, _I, _P])
-KERNELS = (SAD_FIELD, MC_BLOCK)
+ORDERED_SUM = CudaKernel("ordered_sum", "ordered_sum.cu",
+                         "ordered_sum_launch", [_P, _P, _I, _I, _P])
+KERNELS = (SAD_FIELD, MC_BLOCK, ORDERED_SUM)
 
 
 def build_all(kernels=KERNELS) -> float:
@@ -147,10 +155,12 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """'..15mc_block_kernelILi8ELi8ELb1EEEv..' -> 'mc_block_kernel<8,8,1>'."""
+    """'..15mc_block_kernelILi8ELi8ELb1EEEv..' -> 'mc_block_kernel<8,8,1>';
+    '..18ordered_sum_kernelEPKfPfii' -> 'ordered_sum_kernel'."""
     m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EE", mangled)
     if not m:
-        return mangled
+        m = re.search(r"\d+([a-z_]+_kernel)E", mangled)
+        return m.group(1) if m else mangled
     args = re.findall(r"L[ib](-?\d+)", m.group(2))
     return f"{m.group(1)}<{','.join(args)}>"
 
@@ -364,4 +374,36 @@ def mc_block(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
                         n_fields, nby, nbx, n, taps, bit_depth - 8,
                         (14 - bit_depth) if rounded else 0,
                         (1 << bit_depth) - 1, _stream(ref_ext.device))
+    return out
+
+
+# ------------------------------------------------------ K3 ordered sum
+
+def ordered_sum_ref(parts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: the float32 sum of parts (..., L) over its last
+    axis, added left to right from 0, each add rounded in float32."""
+    acc = torch.zeros(parts.shape[:-1], dtype=torch.float32,
+                      device=parts.device)
+    for i in range(parts.shape[-1]):
+        acc = acc + parts[..., i]
+    return acc
+
+
+def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """K3: float32 (..., L) -> (...), the sum of each row in XLA:CPU's
+    row-major chain order (see ordered_sum_ref)."""
+    if parts.dtype != torch.float32:
+        raise ValueError(f"ordered_sum: float32 parts, got {parts.dtype}")
+    if parts.device.type == "cpu":
+        return ordered_sum_ref(parts)
+    if parts.device.type != "cuda":
+        raise ValueError(f"ordered_sum: unsupported device {parts.device}")
+    lead, length = parts.shape[:-1], parts.shape[-1]
+    cols = parts.reshape(-1, length).t().contiguous()       # (L, N)
+    out = torch.empty(lead, dtype=torch.float32, device=parts.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(parts.device):
+        ORDERED_SUM.launch(cols.data_ptr(), out.data_ptr(), length,
+                           cols.shape[1], _stream(parts.device))
     return out

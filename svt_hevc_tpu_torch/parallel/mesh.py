@@ -141,8 +141,10 @@ def frontend_step(mesh):
     world size). out: gpu.analysis.analyze_frame of each of those
     pictures, stacked per key; first: the batch index of the first of
     them; total: the rate proxy (the sum of every picture's cost4..32
-    maps, summed in float64 and all_reduced over the whole mesh), a
-    Python float on every rank."""
+    maps, summed in float64 and all_reduced over the whole mesh, which is
+    exact for the costs' 1/8 steps, then rounded to float32 once as the
+    JAX step's float32 total; equal to it under every compile at the
+    tests' size), a Python float on every rank."""
     def step(frames_local: torch.Tensor):
         tile = mesh.shape[1]
         g, t = mesh.get_coordinate()
@@ -158,7 +160,8 @@ def frontend_step(mesh):
                    for k in (4, 8, 16, 32))
         total = part.reshape(1).to(_device(mesh))
         dist.all_reduce(total)
-        return out, float(total[0]), g * whole.shape[0] + t * per
+        return (out, float(total[0].to(torch.float32)),
+                g * whole.shape[0] + t * per)
 
     return step
 

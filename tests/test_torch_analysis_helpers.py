@@ -8,13 +8,16 @@ Tolerances. Exact equality everywhere the JAX graph computes exactly:
 the intra search maps and ois_packed, the decimations, dev_me_field
 (integer SADs), denoise_plane (planes and sigma, at 8 and 10 bits, in
 each of the three noise classes: the residual sum stays below 2^24
-units of 1/256 at these sizes), and block_variance / ctb_activity on
-blocks whose mean is an integer and whose deviations stay below 64
-(every float32 square and partial sum exact). On natural content the JAX
-graph rounds each float32 square and sums in XLA's own order, while the
-port sums exactly and rounds once: the variances and activities then
-agree within a relative 2e-6 (a few float32 ulps of the sum) and the integer QP
-maps the encoder derives from them are equal.
+units of 1/256 at these sizes, and sigma also equals the exact value),
+and block_variance / ctb_activity on blocks whose mean is an integer and
+whose deviations stay below 64 (every float32 square and partial sum
+exact). On natural content the variances are host-dependent in the
+reference: the JAX graph rounds each float32 square and sums in an order
+that follows the compiling host's vector ISA
+(tests/test_torch_float32_sites.py). There the port's variances and
+activities equal the exact values rounded once, bit for bit, the JAX
+graph's under each of three compiles lie within their measured spread
+of them, and the integer QP maps the encoder derives are equal.
 """
 
 import numpy as np
@@ -35,6 +38,9 @@ from svt_hevc_tpu_torch.io.yuv import Frame
 from svt_hevc_tpu_torch.pipeline.encoder import dev_me_field
 from tests.test_torch_encoder import make_frames
 from tests.test_torch_encoder import one_torch_thread  # noqa: F401
+from tests.test_torch_float32_sites import (assert_host_dependent,
+                                            np_block_variance,
+                                            np_ctb_activity, np_sigma)
 
 _j_block_variance = jax.jit(ja.block_variance, static_argnums=1)
 
@@ -72,8 +78,8 @@ def test_block_variance_matches_jax(n, bd):
     np.testing.assert_array_equal(got.numpy(), want)
     y = _natural_plane(64, 128, bd, seed=n)
     got = ta.block_variance(torch.from_numpy(y), n).numpy()
-    want = np.asarray(_j_block_variance(jnp.asarray(y, jnp.float32), n))
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=0)
+    assert_host_dependent(f"bv{n}/helpers_{bd}bit_64x128_s{n}", "helpers",
+                          got, np_block_variance(y, n))
 
 
 @pytest.mark.parametrize("ctb", [32, 64])
@@ -85,8 +91,8 @@ def test_ctb_activity_matches_jax(ctb):
     np.testing.assert_array_equal(got.numpy(), want)
     y = _natural_plane(128, 192, 8, seed=ctb)
     got = ta.ctb_activity(torch.from_numpy(y), ctb).numpy()
-    want = np.asarray(ja.ctb_activity(jnp.asarray(y, jnp.float32), ctb))
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=0)
+    assert_host_dependent(f"ctb{ctb}/helpers_8bit_128x192_s{ctb}",
+                          "helpers", got, np_ctb_activity(y, ctb))
 
 
 def test_analyze_frame_and_ois_packed_match_jax():
@@ -99,7 +105,10 @@ def test_analyze_frame_and_ois_packed_match_jax():
         assert got[k].shape == w.shape and str(got[k].dtype)[6:] == str(
             w.dtype), k
         if k.startswith("var"):
-            np.testing.assert_allclose(got[k].numpy(), w, rtol=2e-6, err_msg=k)
+            n = int(k[3:])
+            assert_host_dependent(f"af_var{n}/af_helpers_8bit_128x192_s4",
+                                  "helpers", got[k].numpy(),
+                                  np_block_variance(y, n))
         else:
             np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
     yi = _integer_mean_plane(128, 192, 8, seed=5)
@@ -135,6 +144,7 @@ def test_denoise_plane_matches_jax_in_each_noise_class(bd):
                                       maxval=maxval)
         assert gsig.dtype == torch.float32 and gsig.dim() == 0
         assert float(gsig) == float(wsig), sd
+        assert float(gsig) == float(np_sigma(p, maxval)), sd
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         s = float(wsig)
         classes.add(0 if s < 0.004 * maxval else 1 if s < 0.012 * maxval

@@ -3,13 +3,15 @@
 The twin's frames equal bench.py's; its timed encode at a small size
 (W, H, MAX_FRAMES set on the loaded module) gives the JAX package's
 stream for the same configuration; its line carries bench.py's keys plus
-device and decoder, under the CPU's metric name; the decode check holds
+device and decoder, under the CPU's metric name, and the stream's bytes
+and sha256 (those of the JAX package's stream); the decode check holds
 with the port's decoder and with libde265 where installed; a SIGTERM
 still prints one line; the default device without CUDA fails without a
 number; and the card == CPU check reports identical streams for a device
 pair.
 """
 
+import hashlib
 import importlib.util
 import io
 import json
@@ -83,12 +85,17 @@ def test_smoke_frames_build_on_the_twin():
             np.testing.assert_array_equal(getattr(g, p), getattr(f, p))
 
 
-def test_timed_encode_matches_jax(cpu_run):
-    tool, state, stream, aus, _ = cpu_run
+@pytest.fixture(scope="module")
+def jax_stream():
+    """The JAX package's stream of bench.py's frames at SW x SH x SN."""
     frames = load_bench().make_frames(SN, SW, SH)
-    js, _ = JEncoder(JCfg(width=SW, height=SH, qp=32, fps_num=50,
-                          enc_mode=7, intra_period=-1)).encode(frames)
-    assert stream == js
+    return JEncoder(JCfg(width=SW, height=SH, qp=32, fps_num=50,
+                         enc_mode=7, intra_period=-1)).encode(frames)[0]
+
+
+def test_timed_encode_matches_jax(cpu_run, jax_stream):
+    tool, state, stream, aus, _ = cpu_run
+    assert stream == jax_stream
     assert len(aus) == SN
     # every picture after the warm-up ones is a steady one
     assert state["steady_frames"] == SN - tool.WARMUP_FRAMES
@@ -104,7 +111,7 @@ def test_line_has_bench_keys(cpu_run):
         bench._emit()
     want = set(json.loads(out.getvalue()))
     got = tool.line(state)
-    assert set(got) == want | {"device", "decoder"}
+    assert set(got) == want | {"device", "decoder", "bytes", "sha256"}
     assert got["metric"] == "full_encode_1080p_m7_ipp_fps_cpu"
     assert got["device"]["platform"] == "cpu"
     assert set(got["device"]) == {"platform", "name", "power_limit_w",
@@ -113,6 +120,17 @@ def test_line_has_bench_keys(cpu_run):
     assert got["vs_baseline"] == round(got["value"] / 50.0, 4)
     assert got["decode_ok"] is True and got["phase"] == "done"
     json.dumps(got)
+
+
+def test_line_has_the_streams_bytes_and_sha256(cpu_run, jax_stream):
+    """The line's bytes and sha256 are the encoded stream's, the JAX
+    package's; before the encode ends they are null."""
+    tool, state, stream, _, _ = cpu_run
+    got = tool.line(state)
+    assert got["bytes"] == len(jax_stream) == len(stream)
+    assert got["sha256"] == hashlib.sha256(jax_stream).hexdigest()
+    empty = tool.line(tool.new_state())
+    assert empty["bytes"] is None and empty["sha256"] is None
 
 
 def test_decode_check(cpu_run):

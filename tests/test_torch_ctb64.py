@@ -9,12 +9,17 @@ wavefront, DLF and SAO per 64x64 CTB and the emitter's 64x64 CTB walk.
 Every stream must be byte-identical to the JAX package's, every
 reconstruction equal, and the port's decoder must give the
 reconstruction back; one case (pictures 19-23 of the artifacts' clip at
-qp 28) decides a near-tie as the JAX graph's fused multiply-add does.
+qp 28) decides a near-tie as the JAX graph's fused multiply-add does:
+its stream is also held to its recorded digest, and where this process's
+XLA compile does not contract multiply-adds (XLA capped at SSE4_2,
+tests/test_torch_float32_sites.py) the JAX stream decides the tie the
+other way and is held to differ.
 The tools' run_ours twin (device="cpu") must give the JAX tool's
 stream. One frame size (192x128, three 64x64 CTBs by two)
 for every case, so the JAX graphs compile once per picture kind.
 """
 
+import hashlib
 import importlib.util
 import os
 
@@ -29,6 +34,7 @@ from svt_hevc_tpu_torch.gpu import intra_pass
 from svt_hevc_tpu_torch.io.yuv import Frame
 from tests.test_torch_encoder import make_frames
 from tests.test_torch_encoder import one_torch_thread  # noqa: F401
+from tests.test_torch_float32_sites import xla_contracts_multiply_add
 from tests.test_torch_hostpath import assert_same
 from tests.test_torch_intra_inter import intra_frames
 
@@ -71,6 +77,12 @@ CASES = {
 }
 
 
+# scene_wrap_qp28_x5's stream: the port's, and the JAX package's under a
+# compile that contracts multiply-adds (an AVX-512 or AVX2 compile)
+FMA_TIE_STREAM = (2946, "2adaa0de883644172d9cf610e468e630"
+                        "6ee1bd36708b9433dfd417aba6aee8eb")
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_ctb64_fused_stream_matches_jax(case):
     kw, n, content = CASES[case]
@@ -83,6 +95,14 @@ def test_ctb64_fused_stream_matches_jax(case):
     ts, tr = enc.encode([Frame(*p) for p in pl])
     runs = intra_pass.WAVEFRONT["runs"] - before["runs"]
     steps = intra_pass.WAVEFRONT["steps"] - before["steps"]
+    if case == "scene_wrap_qp28_x5":
+        assert (len(ts), hashlib.sha256(ts).hexdigest()) == FMA_TIE_STREAM
+        if not xla_contracts_multiply_add():
+            # a host-dependent reference: rounded twice, the tie goes
+            # the other way (ROADMAP section 3); the recorded stream
+            # stands in for the JAX package's below
+            assert js != ts
+            js, jr = ts, tr
     assert_same(js, jr, ts, tr)
     # the fused IDR's wavefront: 64 z-slots per CTB along 2 * (2 - 1) + 3
     # CTB diagonals; M8's P pictures run it again for their intra CUs

@@ -9,8 +9,11 @@ without filtering, which the textured clip never falls in).
 
 Marked slow (Tier-1 runs -m 'not slow'): python -m pytest -m slow
 tests/test_torch_fullsize_helpers.py. Tolerance: the QP maps, the
-classes, the noise classes and the filtered planes exact; sigma rtol
-1e-5.
+classes, the noise classes and the filtered planes exact; sigma is
+host-dependent in the reference (tests/test_torch_float32_sites.py): the
+port's equals the exact value rounded once, bit for bit, and the JAX
+sigma under each of three compiles lies within its measured spread (up
+to 3 float32 ulps at 1080p).
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ from svt_hevc_tpu_torch import Encoder, EncoderConfig
 from svt_hevc_tpu_torch.gpu.analysis import denoise_plane
 from tests.test_torch_analysis_helpers import _noise_plane
 from tests.test_torch_encoder import one_torch_thread  # noqa: F401
+from tests.test_torch_float32_sites import assert_host_dependent, np_sigma
 
 pytestmark = pytest.mark.slow
 
@@ -57,15 +61,19 @@ def _class(sigma, maxval):
 def test_denoise_classes_1080p_match_jax(bd):
     maxval = (1 << bd) - 1
     seen = set()
-    planes = [_noise_plane(1088, 1920, bd, 0.0, seed=bd)]
+    planes = {f"ramp_{bd}bit_1088x1920":
+              _noise_plane(1088, 1920, bd, 0.0, seed=bd)}
     for sd in (0.0, 1.5, 4.0, 8.0):
         f = make_frames(1, 1920, 1080, seed=7, noise=sd, bit_depth=bd)[0]
-        planes += [np.asarray(f.y, np.int32), np.asarray(f.cb, np.int32)]
-    for i, p in enumerate(planes):
+        for c in ("y", "cb"):
+            planes[f"nat_{bd}bit_sd{sd}_1080p_{c}"] = np.asarray(
+                getattr(f, c), np.int32)
+    for i, (key, p) in enumerate(planes.items()):
         out_j, sig_j = j_denoise(jnp.asarray(p), maxval=maxval)
         out_t, sig_t = denoise_plane(torch.from_numpy(p), maxval=maxval)
+        assert_host_dependent(f"sigma/{key}", "fullsize", sig_t.numpy(),
+                              np_sigma(p, maxval))
         sig_j, sig_t = float(sig_j), float(sig_t)
-        assert sig_t == pytest.approx(sig_j, rel=1e-5), i
         assert _class(sig_t, maxval) == _class(sig_j, maxval), i
         np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j),
                                       err_msg=f"plane {i}")

@@ -10,9 +10,12 @@ bounded join fails the test, rather than hanging, when a rank stalls.
 Tolerances: make_mesh's axes, every MV and every packed encode buffer
 exact; sharded_hme's SAD exact (as tests/test_torch_me.py holds
 hme_search's); frontend_step's per-picture analysis as
-tests/test_torch_analysis_helpers.py holds analyze_frame's (block
-variances rtol 2e-6, the rest exact), and its total rtol 1e-5 (JAX sums
-the float32 cost maps in float32, the port in float64).
+tests/test_torch_analysis_helpers.py holds analyze_frame's (the block
+variances, host-dependent in the reference, equal to the exact values
+rounded once, with the JAX values under three compiles within their
+measured spread; the rest exact), and its total exact (the port's exact
+float64 sum rounded to float32 once is the JAX step's float32 total
+under each of three compiles, tests/test_torch_float32_sites.py).
 """
 
 import time
@@ -166,6 +169,8 @@ def test_frontend_step_matches_jax_analyze_frame(tmp_path):
 
     from svt_hevc_tpu.parallel import frontend_step
     from svt_hevc_tpu.tpu.analysis import analyze_frame
+    from tests.test_torch_float32_sites import (assert_host_dependent,
+                                                np_block_variance)
 
     jmesh = _jax_mesh()
     res = _run_ranks(tmp_path, "frontend")
@@ -176,14 +181,17 @@ def test_frontend_step_matches_jax_analyze_frame(tmp_path):
     firsts = sorted(x["first"] for x in res)
     assert firsts == list(range(frames.shape[0]))
     for got in res:
-        assert got["total"] == pytest.approx(float(total_j), rel=1e-5)
-        want = analyze_frame(jnp.asarray(frames[got["first"]], jnp.float32))
+        assert got["total"] == float(total_j)
+        i = got["first"]
+        want = analyze_frame(jnp.asarray(frames[i], jnp.float32))
         assert set(got["out"]) == set(want)
         for k, w in want.items():
             g = got["out"][k][0]
             if k.startswith("var"):
-                np.testing.assert_allclose(g, np.asarray(w), rtol=2e-6,
-                                           err_msg=k)
+                n = int(k[3:])
+                assert_host_dependent(f"af_var{n}/af_frontend_{i}",
+                                      "frontend", g,
+                                      np_block_variance(frames[i], n))
             else:
                 np.testing.assert_array_equal(g, np.asarray(w), err_msg=k)
 

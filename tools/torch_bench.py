@@ -15,9 +15,10 @@ host's, read between yielded access units, as in bench.py:
   dispatched before access unit 0 is yielded: idr_seconds holds the IDR
   and the first P picture's dispatch, as bench.py's does.
 - compile_seconds: access unit 1's wall time, the first P picture. There
-  is no graph compile here: the CUDA kernels (gpu/kernels.build_all) and
-  the native emitter are built before the clock starts, and their build
-  seconds are printed on an earlier line. A run fails (nonzero exit)
+  is no graph compile here: the CUDA kernels whose libraries are missing
+  or older than their sources (gpu/kernels.build_all) and the native
+  emitter are built before the clock starts, and their build seconds are
+  printed on an earlier line. A run fails (nonzero exit)
   where the native emitter did not build, since the Python emitter is
   not what is timed.
 - value: steady-state frames per second over the access units after the
@@ -44,7 +45,10 @@ any long call into the C++ runtime) is handled when that call returns.
 Keys: bench.py's (metric, value, unit, vs_baseline, idr_seconds,
 compile_seconds, steady_frames, decode_ok, psnr_y, phase) plus device
 ({platform, name, power_limit_w, count}; on the card name and power limit
-from nvidia-smi) and decoder ("libde265" or "port").
+from nvidia-smi), decoder ("libde265" or "port"), and bytes and sha256
+of the encoded stream (parameter sets and the yielded access units; null
+before the encode ends). The whole 64-frame stream is the JAX package's
+(chip_smoke.JAX_1080P["bench"]) when the window does not cut it.
 
 --device: cuda (the default) or cpu. Without a CUDA device the default
 run fails: nonzero exit and a line whose phase names the error; it never
@@ -99,6 +103,8 @@ def new_state() -> dict:
         "phase": "startup",
         "device": None,
         "decoder": None,
+        "bytes": None,              # the encoded stream's length
+        "sha256": None,             # and its sha256
         "au_seconds": [],           # each access unit's wall time
     }
 
@@ -128,6 +134,8 @@ def line(s: dict) -> dict:
         "phase": s["phase"],
         "device": dev,
         "decoder": s["decoder"],
+        "bytes": s["bytes"],
+        "sha256": s["sha256"],
     }
 
 
@@ -211,9 +219,13 @@ def build(device: str) -> None:
     t0 = time.perf_counter()
     msg = ""
     if device.startswith("cuda"):
+        # only what is missing or older than its source: another process
+        # (chip_smoke.py) may have the built libraries loaded
         from svt_hevc_tpu_torch.gpu import kernels
-        msg = (f"{len(kernels.KERNELS)} CUDA kernels built in "
-               f"{kernels.build_all():.3f} s, ")
+        todo = [k for k in kernels.KERNELS if k.stale()]
+        secs = kernels.build_all(todo) if todo else 0.0
+        msg = (f"{len(todo)} of {len(kernels.KERNELS)} CUDA kernels built "
+               f"in {secs:.3f} s, ")
     if not native_emit_available():
         raise RuntimeError("the native host emitter (native/*.c) did not "
                            "build")
@@ -310,6 +322,8 @@ def run(device: str, state: dict, deadline: bool = False):
     log(f"warmup: {W}x{H} x{MAX_FRAMES} M7 qp 32 IPPP on {device}")
     aus = timed_encode(enc, frames, state, device)
     stream = enc.headers() + b"".join(a.data for a in aus)
+    state["bytes"] = len(stream)
+    state["sha256"] = hashlib.sha256(stream).hexdigest()
     p_s = np.array(state["au_seconds"][1:])
     log(f"encoded {len(aus)} pictures, {len(stream)} bytes; IDR "
         f"{state['idr_seconds']:.3f} s, first P "

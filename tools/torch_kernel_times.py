@@ -9,7 +9,11 @@ version (torch.equal) and times, through the tree's own wrappers:
 
   - K1 sad_field at the three hme_search levels;
   - K2 mc_block on one MV field: luma and chroma, rounded and 14-bit,
-    8-bit (a call every version of the wrapper takes).
+    8-bit (a call every version of the wrapper takes);
+  - lookahead_stats (host-inclusive, synchronized, median of 3) on
+    chip_smoke.py phase cli_1080p's batch of 6 frames and on 37 frames,
+    the order-preserving reduction of its SADs (K3) included where the
+    tree has it.
 
 Each with chip_smoke.py's two timings: device_ms (CUDA events around
 R_LAUNCHES back-to-back launches, over the count) and call_ms (the
@@ -32,6 +36,8 @@ import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,6 +99,13 @@ def main() -> int:
                 "device_ms": cs.device_ms(lambda: K.mc_block(*a)),
                 "call_ms": cs.call_ms(lambda: K.mc_block(*a), 50),
                 "bound_ms": cs.bound(*cs.k2_work(ext, a[1:5], *a[5:7]))[0]}
+    clip = cs.make_frames(cs.CLI_FRAMES, 1920, 1080, seed=7, patches=True,
+                          bit_depth=10)
+    ys = torch.from_numpy(np.stack([clip[0].y] + [f.y for f in clip])
+                          .astype(np.int32)).to(dev)
+    for frames in (ys, ys.repeat(7, 1, 1)[:37]):
+        rows[f"lookahead_stats {frames.shape[0]} frames"] = {
+            "ms": cs._time_lookahead(frames) * 1e3}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
