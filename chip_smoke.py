@@ -4,14 +4,19 @@
 
 Phases (one line each, with seconds; any failure exits nonzero). The
 timed card phases (kernels, main, ra, cli_1080p, host_1080p,
-leaves_1080p, bd_1080p) run first with nothing else on the host, and
-each holds its whole 1080p stream to the JAX package's bytes and sha256
-(JAX_1080P); then the CPU reference encodes of the small clips run in
-worker processes while the card encodes the small clips (first the leaf
-clips and phase leaves_check, which wait for no CPU reference). Every
-4:2:0 stream that is decoded below is also decoded by libde265 (through
-the port's binding) where the library is installed, and must give the
-recon:
+leaves_1080p, bd_1080p) run first, and each holds its whole 1080p
+stream to the JAX package's bytes and sha256 (JAX_1080P); kernels,
+subpel and main run with nothing else on the host, and from phase ra on
+the CPU reference encodes of the small clips run beside them in worker
+processes (one thread each). Then the card encodes the small clips
+beside the bench's subprocesses: the main process those of phases
+small_leaves, small, small_ra (and the CPU checkpoint's tail of phase
+stream_variants), CARD_WORKERS card worker processes those of phases
+small_new, variants, stream_variants and small_host, each with its
+decode checks, and the main process holds each worker's stream to the
+CPU's and the recorded sha256. Every 4:2:0 stream that is decoded below
+is also decoded by libde265 (through the port's binding) where the
+library is installed, and must give the recon:
   1. card      name / power limit (nvidia-smi), versions, and whether
                libde265 is installed
   2. build     nvcc builds of the CUDA kernels (csrc/), all at once, with
@@ -28,17 +33,22 @@ recon:
                and call_ms, the host-inclusive time of one wrapper call
                (what a launch-bound caller pays); the plain version's
                device time and the bound beside them
-  4. main      1920x1080 x 5 frames, M7, qp 32, IPPP, on the card: IDR /
+  4. subpel    the dense search's staged quarter-pel helpers (no
+               kernel; nothing on the encoder's paths calls them:
+               _recenter8, _subpel_raw8, _subpel_pred8, _refine_subpel
+               at k = 8, 16, 32) on CUDA tensors == on CPU tensors at
+               1088x1920
+  5. main      1920x1080 x 5 frames, M7, qp 32, IPPP, on the card: IDR /
                first P / steady P seconds from the benchmark's own timed
                loop (tools/torch_bench.py's timed_encode; steady P over
                access units 3 and 4), K1 / K2 launches per P picture
                (all > 0), recon PSNR, libde265 decode == recon, the
                stream == JAX_1080P["main"]
-  5. ra        1920x1080 x 5 frames, M7, qp 32, random access (hl=2: I0
+  6. ra        1920x1080 x 5 frames, M7, qp 32, random access (hl=2: I0
                P4 B2 B1 B3), on the card: IDR, P-anchor and per-layer B
                seconds per picture, K1 / K2 launches per B picture (all >
                0), recon PSNR, the stream == JAX_1080P["ra"]
-  6. cli_1080p the command line (svt_hevc_tpu_torch.app's main, in a
+  7. cli_1080p the command line (svt_hevc_tpu_torch.app's main, in a
                subprocess on the card) on a seeded 1920x1080 10-bit raw
                clip of 5 frames with new textured ramps on the odd
                pictures:
@@ -52,7 +62,7 @@ recon:
                decode == recon, the CLI's file == JAX_1080P["cli_1080p"];
                lookahead_stats card == CPU on the clip's batch (every
                output) and its time at batches of 6 and 37 frames
-  7. host_1080p
+  8. host_1080p
                the host path's target configuration: 1920x1080 x 3
                frames, M7, qp 32, IPPP, 2x2 tiles, improve_sharpness
                (adaptive QP with the content classes), on the card:
@@ -63,31 +73,31 @@ recon:
                stream == JAX_1080P["host_1080p"]; the
                device times of ois_packed, ctb_activity and denoise_plane
                (8 and 10 bits) at 1920x1088
-  8. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
+  9. small     512x256 x 10 frames, M7, qp 32, IPPP, on the card and on
                the CPU: streams byte-identical, equal to the reference
                sha256, decoded by the port's decoder to the recon
-  9. small_ra  512x256 x 9 frames, M7, qp 32, random access (hierarchical
+ 10. small_ra  512x256 x 9 frames, M7, qp 32, random access (hierarchical
                B, hl=2), on the card and on the CPU: streams
                byte-identical, equal to the reference sha256, decoded by
                the port's decoder to the recon
- 10. small_new 512x256 clips of M8-M9, 10-bit and VBR the same way
+ 11. small_new 512x256 clips of M8-M9, 10-bit and VBR the same way
                (card == CPU == reference sha256, decode == recon): M8
                IPPP x10 and M9 RA hl=2 x9 (new ramps on the odd pictures;
                intra CUs in P and in B pictures asserted), 10-bit M7 IPPP
                x10, VBR with lookahead 8 x10
- 11. variants  the other fused-path configurations (presets M6, M10,
+ 12. variants  the other fused-path configurations (presets M6, M10,
                M11; CTB 64; hierarchical low-delay P; low-delay B; random
                access hl=1; open GOP with a CRA and RASL pictures),
                512x256 x 5 frames each (x 9 for the open GOP): card stream
                == CPU stream, decoded to the recon
- 12. stream_variants
+ 13. stream_variants
                further paths, 512x256, card == CPU, decode == recon:
                10-bit RA hl=2, CTB 64 RA hl=2, 10-bit M8 low-delay B, VBR
                with hierarchical low-delay P, a checkpoint split on the
                card == the continuous encode, a CPU-made checkpoint
                restored on the card, EncoderHandle streaming == batch,
                speed control (the dynamic preset rising to M11)
- 13. small_host
+ 14. small_host
                the host path at small sizes, card == CPU, decode ==
                recon: 2x2 tiles, 4:2:2, improve_sharpness, constrained
                intra (a fused I and host P pictures), M5 (256x128) and
@@ -97,13 +107,13 @@ recon:
                pictures), bit-rate reduction at 10 bits, segment
                overrides, M0 (256x128) and speed control rising from M5
                into the fused presets
- 14. host_check
+ 15. host_check
                every device helper of phase host_1080p (the two ME
                fields, the three pictures' OIS maps, ctb_activity and QP
                maps) and denoise_plane of the clip's frames at 8 and 10
                bits equal to a CPU computation from the same inputs (in a
                worker, with the plain versions)
- 15. leaves_1080p
+ 16. leaves_1080p
                the leaf-lane path at full width: 1920x1080 x 5 frames,
                M7, qp 32, hierarchical low-delay P (hl=1: I0, leaves 1
                and 3, layer-0 P 2 and 4), mesh_pictures with
@@ -111,10 +121,9 @@ recon:
                seconds and kernel launches of each picture's encode_frame
                and of the lane dispatch apart, launches per leaf (K1 3,
                K2 13), libde265 decode == recon, the stream ==
-               JAX_1080P["leaves_1080p"]; phase leaves_check
-               (untimed, beside the CPU references): the stream == the
-               same encode without lanes
- 16. bd_1080p  the BD artifacts' configuration at full width: the clip of
+               JAX_1080P["leaves_1080p"] (the JAX package's stream
+               with lanes and without: so also the stream without lanes)
+ 17. bd_1080p  the BD artifacts' configuration at full width: the clip of
                BD_r05_1080p_ipp.json (tools/torch_compare_reference.py's
                make_clip_scene, 1920x1080 x 24), qp 32 (the artifact's
                middle row), M7, CTB 64, IDR period 31, scene-cut off,
@@ -126,12 +135,12 @@ recon:
                JAX_1080P["bd_1080p"]; phase bd_check (at the
                end): the port's decoder, in a worker, gives back the
                recon, with the same PSNR-Y
- 17. small_leaves
+ 18. small_leaves
                512x256 leaf clips with two lanes on cuda:0, hl=1 x10 and
                hl=2 with intra_period=7 x14: sha256 == the JAX package's
-               mesh_pictures stream, == the card's stream without lanes,
-               decode == recon
- 18. mesh      parallel.mesh at world size 1 over NCCL on cuda:0 (a file
+               stream (the same with mesh_pictures and without), decode
+               == recon
+ 19. mesh      parallel.mesh at world size 1 over NCCL on cuda:0 (a file
                init_method under build/): sharded_hme at 1920x1088 (3 K1
                launches); K1 == its plain version on the 1216x1920 slab
                (halo added) at all three levels; sharded_hme == the slab's
@@ -141,7 +150,7 @@ recon:
                gop_encode_step on 2 x 256x256 == fast_p_fused_packed per
                picture == the same steps over gloo on the CPU (a worker);
                frontend_step's total finite and == the CPU's (rtol 1e-9)
- 19. bench     tools/torch_bench.py --gpu-cpu-check in a subprocess
+ 20. bench     tools/torch_bench.py --gpu-cpu-check in a subprocess
                (started with the CPU workers): exit code 0, the card's
                and the CPU's streams of bench.py's check clip identical,
                with the JAX package's 19785 bytes and sha256; and
@@ -276,9 +285,12 @@ HOST_VARIANTS = (
 LEAVES_FRAMES = 5
 LEAVES_KW = dict(hierarchical_levels=1, mesh_pictures=True)
 
-# The JAX reference package's mesh_pictures streams of the small leaf
-# clips (512x256, qp 32, M7, fps_num=50, make_frames(seed=11)), computed
-# on the CPU with its 8 virtual devices: (config, frames, sha256, bytes)
+# The JAX reference package's streams of the small leaf clips (512x256,
+# qp 32, M7, fps_num=50, make_frames(seed=11)), computed on the CPU with
+# its 8 virtual devices by tests/test_torch_parity_1080p.py (script
+# mode): the same with mesh_pictures and without it, under three fresh
+# compiles (the compile cache off; the default ISA, AVX-512, and XLA
+# capped at AVX2 and at SSE4_2): (config, frames, sha256, bytes)
 SMALL_LEAVES = {
     "leaves_hl1": (dict(hierarchical_levels=1), 10,
                    "2d8c1817c4bb26e608e3fdcde41abe2a"
@@ -338,9 +350,17 @@ R_LAUNCHES = 200
 # worker processes (and torch threads in each) for the CPU reference
 # encodes of the small clips: most of a CPU encode is the IDR's
 # sequential wavefront of small steps, which more threads do not speed up
-# (the 1080p streams are held to JAX_1080P instead)
+# (the 1080p streams are held to JAX_1080P instead); five one-thread
+# workers beside the host-bound main process leave the 8 cores of the
+# card's machine unsubscribed
 CPU_WORKERS = 5
-CPU_THREADS = 2
+CPU_THREADS = 1
+# worker processes that encode the small clips of phases small_new,
+# variants, stream_variants and small_host on the card while the main
+# process encodes the others: each encode is a host-bound chain of small
+# launches on one thread with the card mostly idle, so the processes'
+# encodes overlap on the one card
+CARD_WORKERS = 3
 # phase bench's subprocesses (tools/torch_bench.py --gpu-cpu-check, then
 # the benchmark itself)
 BENCH_CHECK_TIMEOUT_S = 600
@@ -870,6 +890,65 @@ def phase_kernels(results: dict):
         f"({time.perf_counter() - t0:.3f} s)")
 
 
+def phase_subpel():
+    """The dense search's staged quarter-pel helpers (gpu.encode
+    _recenter8, _subpel_raw8, _subpel_pred8, _refine_subpel at k = 8, 16
+    and 32; no kernel, and nothing on the encoder's paths calls them) on
+    CUDA tensors == the same calls on CPU tensors, at 1080p shapes: the
+    padded 1088x1920 luma of make_frames(seed=7), its 16 phase planes,
+    seeded quarter-pel fields over [-4 PAD, 4 PAD] per 8x8 block."""
+    import torch
+    from svt_hevc_tpu_torch.gpu import encode as genc
+
+    t0 = time.perf_counter()
+    pad = genc.PAD
+    (y0, _, _), (y1, _, _) = _kernel_inputs(torch.device("cpu"))
+    src, ref = y1.to(torch.int32), y0.to(torch.int32)
+    h, w = src.shape
+    raw = genc.luma_phase_planes(ref)
+    raw16 = raw.reshape(16, raw.shape[2], raw.shape[3])
+    ext = genc._edge_pad(ref, pad)
+    rng = np.random.default_rng(17)
+
+    def field(k, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi + 1, (h // k, w // k))
+                                .astype(np.int32))
+
+    calls = [("_recenter8", genc._recenter8,
+              (ext, field(8, -pad, pad), field(8, -pad, pad), h, w)),
+             ("_subpel_raw8", genc._subpel_raw8,
+              (raw16, field(8, -4 * pad, 4 * pad),
+               field(8, -4 * pad, 4 * pad), h, w)),
+             ("_subpel_pred8", genc._subpel_pred8,
+              (raw16, field(8, -4 * pad, 4 * pad),
+               field(8, -4 * pad, 4 * pad), h, w, 8))]
+    for k in (8, 16, 32):
+        mvx = field(k, -pad + 8, pad - 8) * 4
+        mvy = field(k, -pad + 8, pad - 8) * 4
+        pred = genc._subpel_pred8(raw16, genc._rep(mvx, k // 8),
+                                  genc._rep(mvy, k // 8), h, w, 8)
+        best = genc._boxsum((src - pred).abs(), k)
+        calls.append((f"_refine_subpel k={k}", genc._refine_subpel,
+                      (src, raw16, mvx, mvy, best, k, 8)))
+    parts = []
+    for name, fn, args in calls:
+        want = fn(*args)
+        got = fn(*[a.cuda() if isinstance(a, torch.Tensor) else a
+                   for a in args])
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        check(all(g.is_cuda and torch.equal(g.cpu(), x)
+                  for g, x in zip(got, want)),
+              f"subpel: {name} on the card != on the CPU")
+        if name.startswith("_refine"):
+            moved = int(((got[0] != args[2].cuda())
+                         | (got[1] != args[3].cuda())).sum())
+            name += f" ({moved} of {args[2].numel()} blocks moved)"
+        parts.append(name)
+    log(f"phase subpel: card == CPU at {h}x{w}: {', '.join(parts)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+
 def _cfg(w, h, **kw):
     """The small clips' config: qp 32, M7, intra_period=-1, 50 fps unless
     kw says otherwise."""
@@ -903,7 +982,8 @@ def cpu_reference(job):
     frames (n, width, height, make_frames seed, make_frames arguments),
     kw (the config), n_aus, mode (plain; speed: speed control toward 1e9
     fps; ckpt_cpu: also the first 3 pictures' access units and the
-    pickled checkpoint after them; sov: segment overrides). Returns (headers, access-unit bytes, seconds, extra)."""
+    pickled checkpoint after them; sov: segment overrides). Returns
+    (headers, access-unit bytes, seconds, extra)."""
     import pickle
 
     import torch
@@ -930,6 +1010,28 @@ def cpu_reference(job):
             head = [a.data for a in enc.encode_pictures(frames[:3])]
             extra = (head, pickle.dumps(enc.checkpoint()))
     return hdr, [a.data for a in aus], time.perf_counter() - t0, extra
+
+
+def _card_worker_init() -> None:
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    torch.zeros(1, device="cuda")
+
+
+def card_jobs(pool) -> dict:
+    """Every small clip a card worker encodes, submitted in the order the
+    phases read them: {phase: {key: future}}."""
+    return {
+        "small_new": {name: pool.submit(card_small_new, name)
+                      for name in SMALL_NEW},
+        "variants": [pool.submit(card_variant, i)
+                     for i in range(len(VARIANTS))],
+        "stream_variants": {
+            i: pool.submit(card_stream_variant, i)
+            for i, v in enumerate(STREAM_VARIANTS) if v[4] != "ckpt_cpu"},
+        "small_host": {name: pool.submit(card_small_host, name)
+                       for name in [*SMALL_HOST,
+                                    *(v[0] for v in HOST_VARIANTS)]}}
 
 
 def cpu_jobs() -> dict:
@@ -1063,18 +1165,30 @@ def phase_small_ra(cpu):
         f"({time.perf_counter() - t0:.3f} s)")
 
 
-def phase_variants(cpus):
+def _variant_name(kw) -> str:
+    return ",".join(f"{k}={v}" for k, v in kw.items())
+
+
+def card_variant(i: int) -> bytes:
+    """Phase variants' card encode of VARIANTS[i] (in a card worker):
+    decode == recon; returns the stream."""
+    kw, n = VARIANTS[i]
+    hdr, aus = _encode(make_frames(n, 512, 256, seed=11), 512, 256, "cuda",
+                       **kw)
+    s_gpu = hdr + b"".join(a.data for a in aus)
+    _decodes_to_recon(s_gpu, aus, f"variant {_variant_name(kw)}")
+    return s_gpu
+
+
+def phase_variants(cards, cpus):
     t0 = time.perf_counter()
-    frames = make_frames(9, 512, 256, seed=11)
     parts = []
-    for (kw, n), cpu in zip(VARIANTS, cpus):
-        name = ",".join(f"{k}={v}" for k, v in kw.items())
-        hdr, aus = _encode(frames[:n], 512, 256, "cuda", **kw)
-        s_gpu = hdr + b"".join(a.data for a in aus)
+    for (kw, n), card, cpu in zip(VARIANTS, cards, cpus):
+        name = _variant_name(kw)
+        s_gpu = card.result()
         hdr_c, aus_c, _, _ = cpu.result()
         check(s_gpu == hdr_c + b"".join(aus_c),
               f"variant {name}: card stream != CPU stream")
-        _decodes_to_recon(s_gpu, aus, f"variant {name}")
         parts.append(f"{name} x{n} {len(s_gpu)} bytes")
     log(f"phase variants: 512x256, card == CPU, decode == recon: "
         f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
@@ -1496,27 +1610,35 @@ def _encode_counting_wavefront(name, frames, kw):
     return hdr, aus, intra_pass.WAVEFRONT["runs"] - runs
 
 
-def phase_small_new(cpus):
+def card_small_new(name: str):
+    """Phase small_new's card encode of SMALL_NEW[name] (in a card
+    worker): decode == recon; returns the stream, the intra wavefront
+    runs, the intra pictures and the PSNR-Y."""
+    kw, n, fkw, _, _ = SMALL_NEW[name]
+    frames = make_frames(n, 512, 256, seed=11, **fkw)
+    hdr, aus, runs = _encode_counting_wavefront(name, frames, kw)
+    s_gpu = hdr + b"".join(a.data for a in aus)
+    _decodes_to_recon(s_gpu, aus, name)
+    recons = [a.recon for a in sorted(aus, key=lambda a: a.display_idx)]
+    psnr = _psnr(recons, frames,
+                 peak=1023.0 if kw.get("bit_depth") == 10 else 255.0)
+    return s_gpu, runs, sum(a.slice_type == 2 for a in aus), psnr
+
+
+def phase_small_new(cards, cpus):
     t0 = time.perf_counter()
     parts = []
     for name, (kw, n, fkw, sha_want, nbytes) in SMALL_NEW.items():
-        frames = make_frames(n, 512, 256, seed=11, **fkw)
-        hdr, aus, runs = _encode_counting_wavefront(name, frames, kw)
-        s_gpu = hdr + b"".join(a.data for a in aus)
+        s_gpu, runs, n_intra, psnr = cards[name].result()
         hdr_c, aus_c, t_cpu, _ = cpus[name].result()
         check(s_gpu == hdr_c + b"".join(aus_c),
               f"{name}: card stream != CPU stream")
         sha = hashlib.sha256(s_gpu).hexdigest()
         check(sha == sha_want and len(s_gpu) == nbytes,
               f"{name}: sha256 {sha} / {len(s_gpu)} bytes != reference")
-        _decodes_to_recon(s_gpu, aus, name)
-        n_intra = sum(a.slice_type == 2 for a in aus)
         if name in ("small_m8", "small_m9_ra"):
             check(runs > n_intra,
                   f"{name}: no inter picture ran the intra wavefront")
-        recons = [a.recon for a in sorted(aus, key=lambda a: a.display_idx)]
-        psnr = _psnr(recons, frames,
-                     peak=1023.0 if kw.get("bit_depth") == 10 else 255.0)
         parts.append(f"{name} x{n} {len(s_gpu)} bytes, {runs - n_intra} "
                      f"inter pictures with intra CUs, PSNR-Y {psnr:.3f} "
                      f"dB, CPU {t_cpu:.1f} s")
@@ -1524,59 +1646,73 @@ def phase_small_new(cpus):
         f"recon: {'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
 
 
-def phase_stream_variants(cpus):
+def card_stream_variant(i: int, extra=None):
+    """Phase stream_variants' card encode of STREAM_VARIANTS[i] (in a
+    card worker; a ckpt_cpu variant in the main process, with its CPU
+    job's extra): the decoders' checks; returns the stream and, for
+    speed control, the dynamic preset it reached."""
     import pickle
 
     from svt_hevc_tpu_torch import Encoder, EncoderHandle
+    from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+    name, kw, n, fkw, mode = STREAM_VARIANTS[i]
+    frames = make_frames(n, 512, 256, seed=11, **fkw)
+    cfg = _cfg(512, 256, **kw)
+    aus = dyn = None
+    if mode == "plain":
+        hdr, aus = _encode(frames, 512, 256, "cuda", **kw)
+        s_gpu = hdr + b"".join(a.data for a in aus)
+    elif mode == "split":
+        e1 = Encoder(cfg)
+        head = [a.data for a in e1.encode_pictures(frames[:3])]
+        e2 = Encoder(cfg)
+        e2.restore(pickle.loads(pickle.dumps(e1.checkpoint())))
+        tail = [a.data for a in e2.encode_pictures(frames[3:])]
+        s_gpu = e2.headers() + b"".join(head + tail)
+    elif mode == "ckpt_cpu":
+        head, blob = extra
+        e2 = Encoder(cfg)
+        e2.restore(pickle.loads(blob))
+        tail = [a.data for a in e2.encode_pictures(frames[3:])]
+        s_gpu = e2.headers() + b"".join(head + tail)
+    elif mode == "handle":
+        h = EncoderHandle(cfg, return_recon=True)
+        for f in frames:
+            h.send_picture(f)
+        h.send_eos()
+        pkts = list(h.packets())
+        h.close()
+        check([p.dts for p in pkts] == list(range(n)),
+              f"variant {name}: packet order")
+        s_gpu = h.stream_header() + b"".join(p.data for p in pkts)
+    else:                                   # speed
+        enc = Encoder(cfg)
+        enc.set_speed_control(1e9)
+        aus = list(enc.encode_pictures(frames))
+        s_gpu = enc.headers() + b"".join(a.data for a in aus)
+        dyn = enc._dyn_enc_mode
+    check(len(decode_stream(s_gpu)) == n,
+          f"variant {name}: decoded picture count")
+    if aus is not None:
+        _decodes_to_recon(s_gpu, aus, f"variant {name}")
+    return s_gpu, dyn
+
+
+def phase_stream_variants(cards, cpus):
     t0 = time.perf_counter()
     parts = []
-    for (name, kw, n, fkw, mode), cpu in zip(STREAM_VARIANTS, cpus):
-        frames = make_frames(n, 512, 256, seed=11, **fkw)
+    for i, ((name, _, n, _, mode), cpu) in enumerate(
+            zip(STREAM_VARIANTS, cpus)):
         hdr_c, aus_c, _, extra = cpu.result()
-        s_cpu = hdr_c + b"".join(aus_c)
-        cfg = _cfg(512, 256, **kw)
-        aus = None
-        if mode == "plain":
-            hdr, aus = _encode(frames, 512, 256, "cuda", **kw)
-            s_gpu = hdr + b"".join(a.data for a in aus)
-        elif mode == "split":
-            e1 = Encoder(cfg)
-            head = [a.data for a in e1.encode_pictures(frames[:3])]
-            e2 = Encoder(cfg)
-            e2.restore(pickle.loads(pickle.dumps(e1.checkpoint())))
-            aus = list(e2.encode_pictures(frames[3:]))
-            s_gpu = e2.headers() + b"".join(head + [a.data for a in aus])
-            aus = None
-        elif mode == "ckpt_cpu":
-            head, blob = extra
-            e2 = Encoder(cfg)
-            e2.restore(pickle.loads(blob))
-            tail = [a.data for a in e2.encode_pictures(frames[3:])]
-            s_gpu = e2.headers() + b"".join(head + tail)
-        elif mode == "handle":
-            h = EncoderHandle(cfg, return_recon=True)
-            for f in frames:
-                h.send_picture(f)
-            h.send_eos()
-            pkts = list(h.packets())
-            h.close()
-            check([p.dts for p in pkts] == list(range(n)),
-                  f"variant {name}: packet order")
-            s_gpu = h.stream_header() + b"".join(p.data for p in pkts)
-        else:                                   # speed
-            enc = Encoder(cfg)
-            enc.set_speed_control(1e9)
-            aus = list(enc.encode_pictures(frames))
-            s_gpu = enc.headers() + b"".join(a.data for a in aus)
-            check(enc._dyn_enc_mode == extra == 11,
-                  f"variant {name}: dynamic preset {enc._dyn_enc_mode} / "
-                  f"CPU {extra}, not 11")
-        check(s_gpu == s_cpu, f"variant {name}: card stream != CPU stream")
-        from svt_hevc_tpu_torch.decoder.decoder import decode_stream
-        check(len(decode_stream(s_gpu)) == n,
-              f"variant {name}: decoded picture count")
-        if aus is not None:
-            _decodes_to_recon(s_gpu, aus, f"variant {name}")
+        if mode == "ckpt_cpu":
+            s_gpu, dyn = card_stream_variant(i, extra)
+        else:
+            s_gpu, dyn = cards[i].result()
+        if mode == "speed":
+            check(dyn == extra == 11, f"variant {name}: dynamic preset "
+                  f"{dyn} / CPU {extra}, not 11")
+        check(s_gpu == hdr_c + b"".join(aus_c),
+              f"variant {name}: card stream != CPU stream")
         parts.append(f"{name} x{n} {len(s_gpu)} bytes")
     log(f"phase stream_variants: 512x256, card == CPU, decodes: "
         f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
@@ -1818,44 +1954,58 @@ def phase_host_check(card, cpu):
         f"({time.perf_counter() - t0:.3f} s)")
 
 
-def phase_small_host(cpus):
+def card_small_host(name: str):
+    """Phase small_host's card encode of SMALL_HOST[name] or of the
+    HOST_VARIANTS entry of that name (in a card worker): decode ==
+    recon; returns the stream and, for speed control, the dynamic preset
+    it reached."""
+    from svt_hevc_tpu_torch import Encoder
+    if name in SMALL_HOST:
+        kw, n, fkw, w, h, _, _ = SMALL_HOST[name]
+        mode = "plain"
+    else:
+        _, kw, n, fkw, w, h, mode = next(v for v in HOST_VARIANTS
+                                         if v[0] == name)
+    frames = make_frames(n, w, h, seed=11, **fkw)
+    dyn = None
+    if mode == "speed":
+        enc = Encoder(_cfg(w, h, **kw))
+        enc.set_speed_control(1e9)
+        hdr, aus = enc.headers(), list(enc.encode_pictures(frames))
+        dyn = enc._dyn_enc_mode
+    else:
+        if mode == "sov":
+            frames = _with_segment_ov(frames, w, h)
+        hdr, aus = _encode(frames, w, h, "cuda", **kw)
+    s_gpu = hdr + b"".join(a.data for a in aus)
+    _decodes_to_recon(s_gpu, aus, name)
+    return s_gpu, dyn
+
+
+def phase_small_host(cards, cpus):
     """The host path at small sizes: the JAX package's sha256 for the
     SMALL_HOST clips, card == CPU for those and the HOST_VARIANTS, decode
     == recon."""
-    from svt_hevc_tpu_torch import Encoder
     t0 = time.perf_counter()
     parts = []
     for name, (kw, n, fkw, w, h, sha_want, nbytes) in SMALL_HOST.items():
-        frames = make_frames(n, w, h, seed=11, **fkw)
-        hdr, aus = _encode(frames, w, h, "cuda", **kw)
-        s_gpu = hdr + b"".join(a.data for a in aus)
+        s_gpu, _ = cards[name].result()
         hdr_c, aus_c, t_cpu, _ = cpus[name].result()
         check(s_gpu == hdr_c + b"".join(aus_c),
               f"{name}: card stream != CPU stream")
         sha = hashlib.sha256(s_gpu).hexdigest()
         check(sha == sha_want and len(s_gpu) == nbytes,
               f"{name}: sha256 {sha} / {len(s_gpu)} bytes != reference")
-        _decodes_to_recon(s_gpu, aus, name)
         parts.append(f"{name} {w}x{h} x{n} {len(s_gpu)} bytes (sha256 "
                      f"match)")
     for i, (name, kw, n, fkw, w, h, mode) in enumerate(HOST_VARIANTS):
-        frames = make_frames(n, w, h, seed=11, **fkw)
+        s_gpu, dyn = cards[name].result()
         hdr_c, aus_c, _, extra = cpus[f"host_variant{i}"].result()
         if mode == "speed":
-            enc = Encoder(_cfg(w, h, **kw))
-            enc.set_speed_control(1e9)
-            hdr, aus = enc.headers(), list(enc.encode_pictures(frames))
-            check(enc._dyn_enc_mode == extra,
-                  f"{name}: dynamic preset {enc._dyn_enc_mode} / CPU "
-                  f"{extra}")
-        else:
-            if mode == "sov":
-                frames = _with_segment_ov(frames, w, h)
-            hdr, aus = _encode(frames, w, h, "cuda", **kw)
-        s_gpu = hdr + b"".join(a.data for a in aus)
+            check(dyn == extra,
+                  f"{name}: dynamic preset {dyn} / CPU {extra}")
         check(s_gpu == hdr_c + b"".join(aus_c),
               f"{name}: card stream != CPU stream")
-        _decodes_to_recon(s_gpu, aus, name)
         parts.append(f"{name} {w}x{h} x{n} {len(s_gpu)} bytes")
     log(f"phase small_host: card == CPU, decode == recon: "
         f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
@@ -1902,8 +2052,12 @@ def phase_leaves_1080p(results: dict):
     leaves in two lanes on the card. Per picture: the synchronized seconds
     of its encode_frame call (a leaf's: its download and host walk) and
     of the lane dispatch apart, and the kernel launches of each;
-    libde265 decode == recon where present. Returns the stream, which
-    phase leaves_check holds to the encode without lanes."""
+    libde265 decode == recon where present. The stream is held whole to
+    JAX_1080P["leaves_1080p"], the JAX package's hl=1 stream, which is
+    the same with mesh_pictures and without it; the port's CPU encode
+    without lanes gives it too (the slow tests/test_torch_parity_1080p.py
+    holds both packages to it). So the lanes change nothing, and no
+    second encode without lanes is made here."""
     import torch
     from svt_hevc_tpu_torch import Encoder
     from svt_hevc_tpu_torch.gpu import kernels as K
@@ -1968,22 +2122,6 @@ def phase_leaves_1080p(results: dict):
         f"stream {same}")
     log(f"phase leaves_1080p: 1920x1080 x{n} hl=1 leaf lanes on the card "
         f"({time.perf_counter() - t_phase:.3f} s)")
-    return stream
-
-
-def phase_leaves_check(stream: bytes):
-    """phase leaves_1080p's stream == the same encode on the card without
-    lanes (run while the CPU references run: not timed)."""
-    from svt_hevc_tpu_torch import Encoder
-    t0 = time.perf_counter()
-    off = Encoder(_cfg(1920, 1080, hierarchical_levels=1))
-    off_aus = list(off.encode_pictures(
-        iter(make_frames(LEAVES_FRAMES, 1920, 1080, seed=7))))
-    check(stream == off.headers() + b"".join(a.data for a in off_aus),
-          "leaves_1080p: the stream with lanes != the stream without")
-    log(f"phase leaves_check: the leaves_1080p stream == the card's encode "
-        f"without lanes ({len(stream)} bytes) "
-        f"({time.perf_counter() - t0:.3f} s)")
 
 
 def _bd_tool():
@@ -2134,8 +2272,8 @@ def phase_bd_check(digests, cpu):
 
 def phase_small_leaves():
     """The 512x256 leaf clips with two lanes on the card: the JAX
-    package's mesh_pictures sha256, == the card's stream without lanes,
-    decode == recon."""
+    package's sha256 (its stream with mesh_pictures and without, the
+    same), decode == recon."""
     t0 = time.perf_counter()
     parts = []
     for name, (kw, n, sha_want, nbytes) in SMALL_LEAVES.items():
@@ -2148,14 +2286,11 @@ def phase_small_leaves():
         check(sha == sha_want and len(s_gpu) == nbytes,
               f"{name}: sha256 {sha} / {len(s_gpu)} bytes != reference")
         check(len(lanes.calls) > 0, f"{name}: no lane dispatch ran")
-        hdr_o, aus_o = _encode(frames, 512, 256, "cuda", **kw)
-        check(s_gpu == hdr_o + b"".join(a.data for a in aus_o),
-              f"{name}: the stream with lanes != the stream without")
         _decodes_to_recon(s_gpu, aus, name)
         parts.append(f"{name} x{n} {len(s_gpu)} bytes, lane groups "
                      f"{[c[0] for c in lanes.calls]}")
-    log(f"phase small_leaves: 512x256, two lanes on cuda:0, sha256 match, "
-        f"== the card's stream without lanes, decode == recon: "
+    log(f"phase small_leaves: 512x256, two lanes on cuda:0, sha256 match "
+        f"(the JAX stream with and without lanes), decode == recon: "
         f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
 
 
@@ -2356,42 +2491,51 @@ def main() -> int:
     except ImportError as e:
         log(f"FAIL: the port package is missing beside this script ({e})")
         return 1
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build()
     results: dict = {}
     phase_kernels(results)
+    phase_subpel()
     phase_main(results)
-    phase_ra(results)
-    phase_cli_1080p(results)
-    host_job, host_card = phase_host_1080p(results)
-    leaves_stream = phase_leaves_1080p(results)
-    bd_stream, bd_digests = phase_bd_1080p(results)
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    pool = ProcessPoolExecutor(
-        max_workers=CPU_WORKERS,
-        mp_context=multiprocessing.get_context("spawn"))
-    bench_job = None
+    # the CPU references start beside the 1080p phases after main (the
+    # benchmark's configuration, timed with nothing else on the host):
+    # one thread each, so the workers and the main process fit the cores
+    spawn = multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(max_workers=CPU_WORKERS, mp_context=spawn)
+    card_pool = bench_job = None
     try:
-        cpu_bd = pool.submit(cpu_bd_decode, bd_stream)
         cpu = {name: pool.submit(cpu_reference, job)
                for name, job in cpu_jobs().items()}
-        cpu_host = pool.submit(cpu_host_helpers, host_job)
         cpu_mesh_job = pool.submit(cpu_mesh, None)
-        bench_job = bench_check_start()
+        phase_ra(results)
+        phase_cli_1080p(results)
+        host_job, host_card = phase_host_1080p(results)
+        cpu_host = pool.submit(cpu_host_helpers, host_job)
         del host_job
-        # the card phases that wait for no CPU reference first, while the
-        # workers compute the first references
+        phase_leaves_1080p(results)
+        bd_stream, bd_digests = phase_bd_1080p(results)
+        cpu_bd = pool.submit(cpu_bd_decode, bd_stream)
+        bench_job = bench_check_start()
+        card_pool = ProcessPoolExecutor(max_workers=CARD_WORKERS,
+                                        mp_context=spawn,
+                                        initializer=_card_worker_init)
+        cards = card_jobs(card_pool)
+        # the main process's own card phases, the leaf clips (which wait
+        # for no CPU reference) first
         phase_small_leaves()
-        phase_leaves_check(leaves_stream)
         phase_small(cpu["small"])
         phase_small_ra(cpu["small_ra"])
-        phase_small_new(cpu)
-        phase_variants([cpu[f"variant{i}"] for i in range(len(VARIANTS))])
-        phase_stream_variants([cpu[f"stream_variant{i}"]
-                               for i in range(len(STREAM_VARIANTS))])
-        phase_small_host(cpu)
         phase_mesh(results, cpu_mesh_job)
+        phase_small_new(cards["small_new"], cpu)
+        phase_variants(cards["variants"],
+                       [cpu[f"variant{i}"] for i in range(len(VARIANTS))])
+        phase_stream_variants(cards["stream_variants"],
+                              [cpu[f"stream_variant{i}"]
+                               for i in range(len(STREAM_VARIANTS))])
+        phase_small_host(cards["small_host"], cpu)
         phase_host_check(host_card, cpu_host)
         phase_bd_check(bd_digests, cpu_bd)
         phase_bench(bench_job)
@@ -2399,7 +2543,9 @@ def main() -> int:
         for proc in (bench_job[1] if bench_job is not None else ()):
             if proc.poll() is None:
                 proc.kill()
-        pool.shutdown(wait=True, cancel_futures=True)
+        for p in (card_pool, pool):
+            if p is not None:
+                p.shutdown(wait=True, cancel_futures=True)
     src = {"sad_field": ("svt_hevc_tpu_torch/csrc/sad_field.cu",
                          "svt_hevc_tpu/tpu/pallas_kernels.py:71"),
            "mc_block": ("svt_hevc_tpu_torch/csrc/mc_block.cu",
@@ -2443,6 +2589,8 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": None, "launches_cli": r["launches_cli"]})
     log(f"card: {card}")
+    log(f"chip_smoke.py: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

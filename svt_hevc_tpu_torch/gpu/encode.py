@@ -759,6 +759,17 @@ def encode_pass_b(src_y, src_cb, src_cr, raws0, raws1, mv8_2l, ref8_2l,
 
 # ---------------------------------------------------------------- dense MD
 
+def _recenter8(ref_ext: torch.Tensor, cy8: torch.Tensor, cx8: torch.Tensor,
+               h: int, w: int) -> torch.Tensor:
+    """Recentred integer reference: each 8x8 block displaced by its own
+    full-pel center (cy8, cx8). ref_ext padded by PAD."""
+    dev = ref_ext.device
+    sy = (torch.arange(h // 8, device=dev) * 8)[:, None] + cy8 + PAD
+    sx = (torch.arange(w // 8, device=dev) * 8)[None, :] + cx8 + PAD
+    return _gather_blocks(ref_ext[None], torch.zeros_like(sy), sy, sx, 8,
+                          h, w)
+
+
 def _sad_stack8(src: torch.Tensor, rec: torch.Tensor, r: int):
     """SAD of every 8x8 block vs the recentred ref displaced by every
     (dy, dx) in [-r, r]^2: (2r+1, 2r+1, nby, nbx) int32."""
@@ -788,6 +799,53 @@ def _int_field(int_mvx, int_mvy, k: int) -> torch.Tensor:
     """Per-k-block integer MVs as a quarter-pel 8x8-grid field."""
     return torch.stack([_rep(int_mvx, k // 8) * 4,
                         _rep(int_mvy, k // 8) * 4], -1)
+
+
+def _subpel_raw8(raw16: torch.Tensor, mvqx: torch.Tensor,
+                 mvqy: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """14-bit MC gather where every 8x8 block uses its own quarter-pel MV
+    from a (16, Hp, Wp) flat phase stack (the bi-prediction intermediate
+    form of _subpel_pred8)."""
+    dev = raw16.device
+    ph = (mvqy & 3) * 4 + (mvqx & 3)
+    sy = (torch.arange(h // 8, device=dev) * 8)[:, None] + (mvqy >> 2) + PAD
+    sx = (torch.arange(w // 8, device=dev) * 8)[None, :] + (mvqx >> 2) + PAD
+    return _gather_blocks(raw16, ph, sy, sx, 8, h, w)
+
+
+def _subpel_pred8(raw16: torch.Tensor, mvq8x: torch.Tensor,
+                  mvq8y: torch.Tensor, h: int, w: int,
+                  bit_depth: int) -> torch.Tensor:
+    """Rounded prediction plane where every 8x8 block uses its own
+    quarter-pel MV (raw16: (16, Hp, Wp) flat phase stack)."""
+    return _round_uni(_subpel_raw8(raw16, mvq8x, mvq8y, h, w), bit_depth)
+
+
+_HALF_OFFS = ((-2, -2), (-2, 0), (-2, 2), (0, -2), (0, 2), (2, -2), (2, 0),
+              (2, 2))
+_QUARTER_OFFS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1),
+                 (1, 0), (1, 1))
+
+
+def _refine_subpel(src, raw16, mvqx, mvqy, best, k: int, bit_depth: int):
+    """One half-pel then one quarter-pel 8-neighbour stage around the
+    per-k-block best (mvqx, mvqy), each stage's candidates around the
+    previous stage's winner; SADs summed at k granularity, strict-<
+    updates in the offset tables' order (ties keep the earlier winner).
+    Returns the updated (mvqx, mvqy, best)."""
+    h, w = src.shape
+    for offs in (_HALF_OFFS, _QUARTER_OFFS):
+        cx, cy = mvqx, mvqy
+        for oy, ox in offs:
+            tx, ty = cx + ox, cy + oy
+            pred = _subpel_pred8(raw16, _rep(tx, k // 8), _rep(ty, k // 8),
+                                 h, w, bit_depth)
+            sad = _boxsum((src - pred).abs(), k)
+            take = sad < best
+            mvqx = torch.where(take, tx, mvqx)
+            mvqy = torch.where(take, ty, mvqy)
+            best = torch.where(take, sad, best)
+    return mvqx, mvqy, best
 
 
 def _refine_subpel_dense(src, rec, int_mvx, int_mvy, best, k: int,

@@ -20,10 +20,12 @@ off): the host's default ISA, --xla_cpu_max_isa=AVX2 and
   for bit against a float64 numpy reference rounded once, and each JAX
   value within SPREAD_ULPS float32 ulps of it (per compile and input,
   measured by --table on an AVX-512 host, on the inputs below).
-- State 3, ISA-dependent and open: a product feeding an add (contracted
-  or not) and a 2x2 window sum (row by row or pairwise); the port keeps
-  the AVX-512 compile's arithmetic, and each compile computes one of the
-  two.
+- State 3, ISA-dependent arithmetic: a product feeding an add
+  (contracted or not) and a 2x2 window sum (row by row or pairwise); the
+  port keeps the AVX-512 compile's arithmetic, and each compile computes
+  one of the two (tests/test_torch_fma.py holds the port to recorded
+  outputs of that compile, and names each compile's model with the
+  probes xla_contracts_multiply_add and xla_sums_2x2_row_by_row).
 
 Inputs: the sizes the other tests use, and 1080p planes (natural content
 of chip_smoke.make_frames at 8 and 10 bits, with a scene cut so the
@@ -232,6 +234,16 @@ def xla_contracts_multiply_add() -> bool:
     return np.array_equal(got, _models("fma/xla")["fused"])
 
 
+def xla_sums_2x2_row_by_row() -> bool:
+    """Whether this process's XLA compile sums a float32 2x2 window row by
+    row, ((a00 + a01) + a10) + a11, as the default (AVX-512) compile does
+    and the AVX2 and SSE4_2 ones (pairwise) do not."""
+    import jax
+    from svt_hevc_tpu.tpu import encode as je
+    got = np.asarray(jax.jit(je._boxsum, static_argnums=1)(box2_input(), 2))
+    return np.array_equal(got, _models("box2/xla")["row by row"])
+
+
 def sao_input(seed: int):
     """Edge-offset statistics of 10-bit 64x64 CTBs (counts, sums) whose
     offsets clip at the 10-bit range and whose 2 o s passes 2^24."""
@@ -318,26 +330,35 @@ def _worker(path: str, inputs=None) -> None:
     np.savez(path, **_jax_site_values(inputs))
 
 
-@functools.lru_cache(maxsize=None)
-def jax_values(isa: str, inputs: tuple | None = None) -> dict:
-    """The JAX values under one fresh compile (of every input, or of the
-    named inputs): a subprocess with the compile cache off, XLA's ISA
-    capped as ISAS says and the 8 virtual devices of tests/conftest.py."""
+def jax_env(isa: str) -> dict:
+    """The environment of one fresh compile of the JAX graphs: the compile
+    cache off, XLA's ISA capped as ISAS says and the 8 virtual devices of
+    tests/conftest.py."""
     flags = " ".join(f for f in ("--xla_force_host_platform_device_count=8",
                                  ISAS[isa]) if f)
-    env = dict(os.environ, JAX_COMPILATION_CACHE_DIR="", XLA_FLAGS=flags,
-               JAX_PLATFORMS="cpu")
+    return dict(os.environ, JAX_COMPILATION_CACHE_DIR="", XLA_FLAGS=flags,
+                JAX_PLATFORMS="cpu")
+
+
+def run_worker(script: str, isa: str, args=()) -> dict:
+    """The arrays that `python script --worker OUT.npz *args` saves when
+    run in a subprocess under jax_env(isa)."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "values.npz")
-        cmd = [sys.executable, os.path.abspath(__file__), "--worker", path]
-        if inputs is not None:
-            cmd += ["--inputs", ",".join(inputs)]
-        r = subprocess.run(cmd, env=env, cwd=ROOT,
-                           capture_output=True, text=True,
-                           timeout=WORKER_TIMEOUT_S)
+        r = subprocess.run([sys.executable, script, "--worker", path, *args],
+                           env=jax_env(isa), cwd=ROOT, capture_output=True,
+                           text=True, timeout=WORKER_TIMEOUT_S)
         assert r.returncode == 0, r.stderr[-3000:]
         with np.load(path) as z:
             return {k: z[k] for k in z.files}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_values(isa: str, inputs: tuple | None = None) -> dict:
+    """The JAX values under one fresh compile (of every input, or of the
+    named inputs), computed in a subprocess under jax_env(isa)."""
+    args = () if inputs is None else ("--inputs", ",".join(inputs))
+    return run_worker(os.path.abspath(__file__), isa, args)
 
 
 # ------------------------------------------------------ the port side
@@ -469,7 +490,7 @@ def exact_site_values() -> dict:
 # The sites, each with its value keys' prefix and its state: 1 = the
 # same under every compile, and the port equals JAX; 2 = host-dependent
 # in the reference, the port exact (rounded once) and JAX within the
-# measured spread; 3 = host-dependent in the reference and open: the
+# measured spread; 3 = host-dependent arithmetic in the reference: the
 # port keeps the arithmetic of the default compile on an AVX-512 host
 # (the one that made the BD artifacts and chip_smoke.JAX_1080P), and each
 # JAX compile computes one of the two models of _models

@@ -16,6 +16,12 @@ chip_smoke.make_frames):
 - bd_1080p: BD_r05_1080p_ipp.json's clip and configuration at qp 32
   (CTB 64, IDR period 31, scene-cut off), x24.
 
+Beside them, the JAX package's streams of chip_smoke.py's 512x256 leaf
+clips (SMALL_LEAVES: hl=1 x10, hl=2 with intra_period=7 x14), with
+mesh_pictures on the 8 virtual devices and without it: both equal the
+recorded sha256, which is how the card's lane stream, held to it, is
+also held to the stream without lanes.
+
 Marked slow (Tier-1 runs -m 'not slow'); one configuration takes 0.5 to
 10 minutes per package on the CPU:
 
@@ -28,12 +34,16 @@ prints one JSON line per stream (name, package, bytes, sha256, seconds):
     JAX_COMPILATION_CACHE_DIR= python tests/test_torch_parity_1080p.py \
         --package jax main ra
 
+(a leaf clip's name prints its JAX stream without and with
+mesh_pictures).
+
 The JAX package's float32 reductions are compiled for the host's vector
 ISA; chip_smoke.py's comment on JAX_1080P says under which ISAs the
 constants were made.
 """
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -51,6 +61,7 @@ if ROOT not in sys.path:
 import chip_smoke  # noqa: E402
 
 NAMES = tuple(chip_smoke.JAX_1080P)
+LEAF_NAMES = tuple(chip_smoke.SMALL_LEAVES)
 
 
 def _bench_frames():
@@ -125,6 +136,23 @@ def stream(package: str, name: str) -> bytes:
     return enc.headers() + b"".join(aus)
 
 
+def leaf_stream(name: str, mesh: bool) -> bytes:
+    """The JAX package's whole stream of the small leaf clip name
+    (chip_smoke.SMALL_LEAVES; 512x256, qp 32, M7, make_frames(seed=11)),
+    with mesh_pictures or without."""
+    from svt_hevc_tpu.config import EncoderConfig
+    from svt_hevc_tpu.io.yuv import Frame
+    from svt_hevc_tpu.pipeline.encoder import Encoder
+    kw, n, _, _ = chip_smoke.SMALL_LEAVES[name]
+    enc = Encoder(EncoderConfig(**dict(
+        dict(width=512, height=256, qp=32, enc_mode=7, intra_period=-1,
+             fps_num=50, mesh_pictures=mesh), **kw)))
+    frames = [Frame(y=f.y, cb=f.cb, cr=f.cr)
+              for f in chip_smoke.make_frames(n, 512, 256, seed=11)]
+    return enc.headers() + b"".join(
+        a.data for a in enc.encode_pictures(iter(frames)))
+
+
 def digest(s: bytes) -> tuple:
     return len(s), hashlib.sha256(s).hexdigest()
 
@@ -139,22 +167,41 @@ def test_1080p_stream_equals_the_recorded_jax_stream(name, package):
     assert digest(stream(package, name)) == chip_smoke.JAX_1080P[name]
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("name", LEAF_NAMES)
+def test_small_leaf_clip_jax_stream_equals_the_recorded_stream(name, mesh):
+    _, _, sha, n = chip_smoke.SMALL_LEAVES[name]
+    assert digest(leaf_stream(name, mesh)) == (n, sha)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", choices=["jax", "port"], required=True)
-    ap.add_argument("names", nargs="+", choices=NAMES)
+    ap.add_argument("names", nargs="+", choices=NAMES + LEAF_NAMES)
     args = ap.parse_args(argv)
     if args.package == "jax":
         os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + " --xla_force_host_platform_device_count=8").strip()
         import jax
         jax.config.update("jax_platforms", "cpu")
+    elif set(args.names) & set(LEAF_NAMES):
+        ap.error("the leaf clips are the JAX package's streams only")
     for name in args.names:
-        t0 = time.perf_counter()
-        n, sha = digest(stream(args.package, name))
-        print(json.dumps({"name": name, "package": args.package,
-                          "bytes": n, "sha256": sha,
-                          "seconds": round(time.perf_counter() - t0, 3)}),
-              flush=True)
+        runs = ([(f"{name} mesh_pictures={m}", functools.partial(
+            leaf_stream, name, m)) for m in (False, True)]
+            if name in LEAF_NAMES
+            else [(name, functools.partial(stream, args.package, name))])
+        for label, make in runs:
+            t0 = time.perf_counter()
+            n, sha = digest(make())
+            print(json.dumps({"name": label, "package": args.package,
+                              "bytes": n, "sha256": sha,
+                              "seconds": round(time.perf_counter() - t0,
+                                               3)}), flush=True)
     return 0
 
 
