@@ -3,12 +3,14 @@
     python3 chip_smoke.py
 
 Phases (one line each, with seconds; any failure exits nonzero). The
-timed card phases (kernels, main, ra, cli_1080p, host_1080p,
-leaves_1080p, bd_1080p) run first, and each holds its whole 1080p
-stream to the JAX package's bytes and sha256 (JAX_1080P); kernels,
-subpel and main run with nothing else on the host, and from phase ra on
-the CPU reference encodes of the small clips run beside them in worker
-processes (one thread each). Then the card encodes the small clips
+timed card phases (kernels, kernels_uhd, main, ra, cli_1080p,
+host_1080p, leaves_1080p, bd_1080p, uhd_2160p, uhd_4320p_vbr) run
+first, and each holds its whole stream to the JAX package's bytes and
+sha256 (JAX_1080P, JAX_UHD); kernels, subpel and main run with nothing
+else on the host, and from phase ra on the CPU reference encodes of the
+small clips run beside them in worker processes (one thread each), and
+so does the 4320p command line of phase uhd_4320p_vbr, in a subprocess
+on the card. Then the card encodes the small clips
 beside the bench's subprocesses: the main process those of phases
 small_leaves, small, small_ra (and the CPU checkpoint's tail of phase
 stream_variants), CARD_WORKERS card worker processes those of phases
@@ -27,12 +29,20 @@ library is installed, and must give the recon:
                batched K2 shapes the callers use included (K=13 and the
                B path's K=9 of the CTB-64 merge snaps too), 8-bit and
                10-bit (K1 and K2 timed at both), K3 at the lookahead's
-               1080p shape (5202 chains of 135 window sums), with two
+               1080p shape (5202 chains of 135 window sums) and under
+               the plans of ten more grids (row lanes, a split column,
+               two levels), with two
                times per variant: device_ms, the kernel's time (CUDA
                events around R_LAUNCHES back-to-back launches, over R),
                and call_ms, the host-inclusive time of one wrapper call
                (what a launch-bound caller pays); the plain version's
                device time and the bound beside them
+     kernels_uhd
+               every kernel against its plain version at 4320p shapes:
+               K1 at the three hme_search levels of 7680x4352, K2's K=10
+               luma launch on the 4320p plane, K3 under the 4320p
+               lookahead's two-level plan (867 sums of 34 x 60 window
+               sums); device_ms, call_ms, plain and bound as above
   4. subpel    the dense search's staged quarter-pel helpers (no
                kernel; nothing on the encoder's paths calls them:
                _recenter8, _subpel_raw8, _subpel_pred8, _refine_subpel
@@ -158,6 +168,23 @@ library is installed, and must give the recon:
                64-frame 1080p stream == JAX_1080P["bench"], decode ==
                recon (its times, taken beside the small-clip phases, are
                not kept)
+     uhd_2160p main's configuration at 3840x2160 x3 (after bd_1080p):
+               per access unit seconds, the IDR's wavefront steps (4064),
+               K1 / K2 launches per P picture (all > 0), PSNR-Y, peak
+               card memory, the stream == JAX_UHD["uhd_2160p"]
+     uhd_4320p_vbr
+               the command line at 7680x4320 x3, 8-bit M7 VBR at 40
+               Mbit/s (UHD_CLI_TOKENS; started after phase main, in a
+               subprocess beside the 1080p phases): per access unit
+               seconds, the IDR's wavefront steps (8160), K1 / K2 launches
+               per P picture, K3's in the lookahead (> 0: the batch's 34 x
+               60 grid of window sums takes the two-level plan), QP per
+               picture, kbit/s, the subprocess's peak card memory, the
+               CLI's file == JAX_UHD["uhd_4320p_vbr"]; lookahead_stats of
+               the batch on the card == the port on the CPU (a worker,
+               every output), its card time and peak memory
+     uhd_check the port's decoder (in CPU workers) gives back both UHD
+               streams' recons
 The line before the last is the kernel JSON, the last line the device
 JSON. Imports nothing of JAX.
 
@@ -341,6 +368,37 @@ JAX_1080P = {
                       "78efe1c61804fff0122ad03e69b168f6"),
     "bd_1080p": (68573, "edfbe63d84ca6593fb737d0a72992945"
                   "a7a54b20d6cbabe8a21f8b8eb79a8d42"),
+}
+
+# The UHD phases: uhd_2160p is main's configuration (bench_config) at
+# 3840x2160 through Encoder.encode_pictures; uhd_4320p_vbr the command
+# line (UHD_CLI_TOKENS, 8-bit M7 VBR, the default lookahead) at 7680x4320,
+# whose lookahead reduces its 1080x1920 decimated planes in two levels of
+# XLA windows; each x UHD_FRAMES of make_frames(seed=7)
+UHD_FRAMES = 3
+UHD_SIZES = {"uhd_2160p": (3840, 2160), "uhd_4320p_vbr": (7680, 4320)}
+UHD_CLI_TOKENS = ["-w", "7680", "-h", "4320", "-bit-depth", "8",
+                  "-encMode", "7", "-intra-period", "-1", "-rc", "1",
+                  "-tbr", "40000000", "-fps", "30"]
+
+
+def uhd_config_kw(name: str) -> dict:
+    """The EncoderConfig keywords of uhd_2160p (main's at 3840x2160)."""
+    w, h = UHD_SIZES[name]
+    return dict(width=w, height=h, qp=32, fps_num=50, enc_mode=7,
+                intra_period=-1)
+
+
+# The JAX package's whole UHD streams: (bytes, sha256), computed on the
+# CPU by tests/test_torch_parity_uhd.py (its script mode) with the
+# compile cache off, under three fresh compiles of the JAX graphs (the
+# host's default ISA, AVX-512, and XLA's ISA capped at AVX2 and at
+# SSE4_2), which gave the same streams
+JAX_UHD = {
+    "uhd_2160p": (809050, "224989c245cc4a1aecf5dd92d15b5a59"
+                  "50f7b94554ebe3d1726af5429c28f765"),
+    "uhd_4320p_vbr": (3231914, "c5d7e87611667103017960851435851c"
+                      "8957f1fe2bdc674ac778bdaa24ad8888"),
 }
 
 # launches per device-time sample (CUDA events around a run of many
@@ -532,8 +590,8 @@ def check(cond: bool, what: str) -> None:
 
 def check_jax_stream(name: str, stream: bytes) -> str:
     """Fail unless stream is the JAX package's whole stream of phase
-    name (JAX_1080P); returns the log's words for it."""
-    n, sha = JAX_1080P[name]
+    name (JAX_1080P, JAX_UHD); returns the log's words for it."""
+    n, sha = {**JAX_1080P, **JAX_UHD}[name]
     got = hashlib.sha256(stream).hexdigest()
     check(len(stream) == n and got == sha,
           f"{name}: {len(stream)} bytes, sha256 {got}; the JAX package's "
@@ -854,20 +912,37 @@ def phase_kernels(results: dict):
     # the 289 displacements of a batch of 18 pictures (lookahead 8), each
     # a float32 sum of whole sixteenths below 2^20, whose chain passes
     # 2^24 and rounds
+    from svt_hevc_tpu_torch.gpu.analysis import xla_reduce_plan
+    q = xla_reduce_plan(9, 15)
     rng = np.random.default_rng(8)
     parts = torch.from_numpy((rng.integers(0, 1 << 24, (289 * 18, 135))
                               / 16.0).astype(np.float32)).to(dev)
-    out = K.ordered_sum(parts)
-    want = K.ordered_sum_ref(parts)
+    out = K.ordered_sum(parts, q)
+    want = K.ordered_sum_ref(parts, q)
     torch.cuda.synchronize()
     check(torch.equal(out, want), "K3 ordered_sum differs from plain")
-    k3 = time_kernel(lambda: K.ordered_sum(parts),
-                     lambda: K.ordered_sum_ref(parts),
+    k3 = time_kernel(lambda: K.ordered_sum(parts, q),
+                     lambda: K.ordered_sum_ref(parts, q),
                      4 * (parts.numel() + out.numel()), parts.numel())
-    results["ordered_sum"] = dict(k3, max_abs_err=float(
-        (out - want).abs().max()))
+    err = float((out - want).abs().max())
     log(f"  K3 ordered_sum {parts.shape[0]} chains of {parts.shape[1]}: "
         f"equal, {_fmt(k3)}")
+    # K3 under every kind of plan xla_reduce_plan gives (2, 4 and 8 row
+    # lanes with and without remaining rows, a split last column, one
+    # and two levels of windows), each against its plain version
+    for grid in ((2, 5), (4, 6), (8, 8), (17, 2), (21, 4), (31, 7),
+                 (9, 33), (33, 9), (1, 64), (17, 63)):
+        qg = xla_reduce_plan(*grid)
+        x = torch.from_numpy((rng.integers(0, 1 << 24, (
+            289 * 2, grid[0] * grid[1])) / 16.0).astype(np.float32)).to(dev)
+        out, want = K.ordered_sum(x, qg), K.ordered_sum_ref(x, qg)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"K3 under plan {tuple(qg)} differs "
+              f"from plain")
+        err = max(err, float((out - want).abs().max()))
+    results["ordered_sum"] = dict(k3, max_abs_err=err)
+    log("  K3 ordered_sum under the plans of ten grids (row lanes, a split "
+        "column, two levels): equal")
     b1, by1 = bound(k1["bytes"], k1["ops"])
     b10, by10 = bound(k1_10["bytes"], k1_10["ops"])
     results["sad_field"] = {
@@ -1422,9 +1497,9 @@ def cli_probe(out_path: str, tokens) -> int:
     in decode order, the seconds since the previous one (the first: since
     the call, so it holds the first lookahead batch), the kernel launches
     and the intra wavefront runs and steps in between, and the intra
-    fixup's seconds (_FixupTimer). VBR pictures are not pipelined, so
-    each span is that picture's. Counts start at 0 when the encode
-    starts."""
+    fixup's seconds (_FixupTimer); and the card's peak allocated bytes.
+    VBR pictures are not pipelined, so each span is that picture's.
+    Counts start at 0 when the encode starts."""
     import torch
     from svt_hevc_tpu_torch import app
     from svt_hevc_tpu_torch.gpu import encode as genc
@@ -1454,9 +1529,12 @@ def cli_probe(out_path: str, tokens) -> int:
             yield au
 
     Encoder.encode_pictures = probed
+    torch.cuda.reset_peak_memory_stats()
     rc = app.main(list(tokens))
     with open(out_path, "w") as f:
-        json.dump(rows, f)
+        json.dump({"rows": rows,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()},
+                  f)
     return rc
 
 
@@ -1521,7 +1599,7 @@ def phase_cli_1080p(results: dict):
     t_cli = time.perf_counter() - t0
     check(r.returncode == 0, f"the command line failed: {r.stderr[-3000:]}")
     with open(path["probe.json"]) as f:
-        rows = json.load(f)
+        rows = json.load(f)["rows"]
     with open(path["out.265"], "rb") as f:
         stream = f.read()
     recons = list(read_yuv(path["rec.yuv"], 1920, 1080, bit_depth=10))
@@ -2476,6 +2554,333 @@ def phase_mesh(results: dict, cpu):
         f"({time.perf_counter() - t0:.3f} s)")
 
 
+# ------------------------------------------------------------ UHD phases
+
+def _uhd_kernel_inputs(dev):
+    """4320p main-path inputs: two consecutive 7680x4320 frames padded to
+    the 64-aligned grid (7680x4352) like the encoder's upload."""
+    from svt_hevc_tpu_torch.gpu import encode as genc
+    w, h = UHD_SIZES["uhd_4320p_vbr"]
+    fr = make_frames(2, w, h, seed=7)
+    return [genc.prep_planes(f.y, f.cb, f.cr, w, -(-h // 64) * 64, dev)
+            for f in fr]
+
+
+def phase_kernels_uhd(results: dict):
+    """Every kernel against its plain version on the card at 4320p shapes:
+    K1 at the three hme_search levels of 7680x4352, K2's batched K=10
+    luma launch (merge_snap's) on the 4320p plane, K3 at the two-level
+    plan of the 4320p lookahead (34 x 60 window sums, 2 x 2 windows of
+    32 x 32) over 289 * 3 columns (the uhd_4320p_vbr batch); each timed
+    as in phase kernels."""
+    import torch
+    from svt_hevc_tpu_torch.gpu import analysis as ta
+    from svt_hevc_tpu_torch.gpu import encode as genc
+    from svt_hevc_tpu_torch.gpu import kernels as K
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    planes = _uhd_kernel_inputs(dev)
+    k1 = {"device_ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "ops": 0.0,
+          "bytes": 0.0}
+    err = 0.0
+    for name, src, ref, r in k1_levels(planes):
+        out = K.sad_field(src, ref, 16, r)
+        want = K.sad_field_ref(src, ref, 16, r)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"K1 4320p {name} differs from plain")
+        err = max(err, float((out - want).abs().max()))
+        nbytes, ops = k1_work(src, r)
+        t = time_kernel(lambda a=(src, ref, 16, r): K.sad_field(*a),
+                        lambda a=(src, ref, 16, r): K.sad_field_ref(*a),
+                        nbytes, ops, plain_reps=2)
+        h, w = src.shape
+        log(f"  K1 sad_field 4320p {name} {h}x{w} r={r}: equal, {_fmt(t)}")
+        for key in ("device_ms", "call_ms", "plain_ms"):
+            k1[key] += t[key]
+        k1["ops"] += ops
+        k1["bytes"] += nbytes
+    b, by = bound(k1["bytes"], k1["ops"])
+    results["sad_field"]["uhd"] = {
+        "shape": "7680x4352, 3 levels", "device_ms": k1["device_ms"],
+        "call_ms": k1["call_ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": b, "bound_by": by}
+    results["sad_field"]["max_abs_err"] = max(
+        results["sad_field"]["max_abs_err"], err)
+    del src, ref, out, want
+
+    lim = (genc.PAD - 9) * 4
+    (y0, _, _), _ = planes
+    nby, nbx = y0.shape[0] // 8, y0.shape[1] // 8
+    mv = torch.from_numpy(k2_fields(10, nby, nbx, seed=6)).to(dev)
+    ext = genc._ext_y(y0)
+    out = genc._mc_luma(ext, mv, 8, True)
+    args = k2_args(genc, "luma", ext, mv.clamp(-lim, lim), True, 8)
+    want = K.mc_block_ref(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "K2 4320p batched luma K=10 differs")
+    err = float((out - want).abs().max())
+    del out, want
+    nbytes, ops = k2_work(ext, args[1:5], *args[5:7])
+    t = time_kernel(lambda a=args: K.mc_block(*a),
+                    lambda a=args: K.mc_block_ref(*a), nbytes, ops,
+                    plain_reps=2)
+    results["mc_block"]["uhd"] = dict(t, shape=f"K=10 luma on "
+                                      f"{y0.shape[1]}x{y0.shape[0]}")
+    results["mc_block"]["max_abs_err"] = max(
+        results["mc_block"]["max_abs_err"], err)
+    log(f"  K2 mc_block 4320p batched luma bd=8 rounded K=10 on "
+        f"{y0.shape[1]}x{y0.shape[0]}: equal, {_fmt(t)}")
+    del planes, ext, mv, args
+
+    q = ta.xla_reduce_plan(34, 60)
+    rng = np.random.default_rng(9)
+    parts = torch.from_numpy((rng.integers(0, 1 << 24, (289 * 3, 34 * 60))
+                              / 16.0).astype(np.float32)).to(dev)
+    out = K.ordered_sum(parts, q)
+    want = K.ordered_sum_ref(parts, q)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "K3 4320p two-level plan differs")
+    t = time_kernel(lambda: K.ordered_sum(parts, q),
+                    lambda: K.ordered_sum_ref(parts, q),
+                    4 * (parts.numel() + out.numel()), parts.numel(),
+                    plain_reps=2)
+    results["ordered_sum"]["uhd"] = dict(
+        t, shape=f"{parts.shape[0]} sums of 34 x 60, plan {tuple(q)}")
+    results["ordered_sum"]["max_abs_err"] = max(
+        results["ordered_sum"]["max_abs_err"],
+        float((out - want).abs().max()))
+    log(f"  K3 ordered_sum 4320p {parts.shape[0]} sums of 34 x 60 window "
+        f"sums (plan {tuple(q)}): equal, {_fmt(t)}")
+    log(f"phase kernels_uhd: K1 x3 levels, K2 K=10 luma, K3's two-level "
+        f"plan at 4320p shapes equal to plain "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+
+def uhd_lookahead_batch(frames) -> np.ndarray:
+    """The uhd_4320p_vbr stream's one lookahead batch, as
+    Encoder._la_complexities stacks it: the first picture (no
+    predecessor), then every picture."""
+    return np.stack([frames[0].y] + [f.y for f in frames]).astype(np.int32)
+
+
+def uhd_cli_start(pool):
+    """Write the uhd_4320p_vbr clip and start the command line on it in a
+    subprocess on the card (chip_smoke.py --cli-probe), beside the 1080p
+    phases, and the CPU's lookahead_stats of its batch in a worker:
+    returns (process, paths, start time, frames, lookahead future)."""
+    from svt_hevc_tpu_torch.io.yuv import write_yuv420
+    w, h = UHD_SIZES["uhd_4320p_vbr"]
+    frames = make_frames(UHD_FRAMES, w, h, seed=7)
+    d = os.path.join(HERE, "build", "uhd_4320p_vbr")
+    os.makedirs(d, exist_ok=True)
+    path = {k: os.path.join(d, k)
+            for k in ("in.yuv", "out.265", "rec.yuv", "probe.json")}
+    write_yuv420(path["in.yuv"], frames)
+    tokens = ["-i", path["in.yuv"], "-b", path["out.265"], "-o",
+              path["rec.yuv"], *UHD_CLI_TOKENS]
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--cli-probe", path["probe.json"], "--",
+                             *tokens], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=HERE)
+    return (proc, path, time.perf_counter(), frames,
+            pool.submit(cpu_uhd_lookahead))
+
+
+def cpu_uhd_lookahead():
+    """The port's lookahead_stats on the CPU (in a worker) of the
+    uhd_4320p_vbr batch: {key: numpy array}, seconds."""
+    import torch
+    from svt_hevc_tpu_torch.gpu.analysis import lookahead_stats
+    torch.set_num_threads(CPU_THREADS)
+    w, h = UHD_SIZES["uhd_4320p_vbr"]
+    ys = uhd_lookahead_batch(make_frames(UHD_FRAMES, w, h, seed=7))
+    t0 = time.perf_counter()
+    st = lookahead_stats(torch.from_numpy(ys))
+    return {k: v.numpy() for k, v in st.items()}, time.perf_counter() - t0
+
+
+def cpu_uhd_decode(stream: bytes):
+    """A UHD stream through the port's decoder (in a worker): (digests of
+    the decoded pictures in display order, seconds)."""
+    from svt_hevc_tpu_torch.decoder.decoder import decode_stream
+    t0 = time.perf_counter()
+    dec = decode_stream(stream)
+    return _plane_digests(dec), time.perf_counter() - t0
+
+
+def phase_uhd_2160p(results: dict, pool):
+    """main's configuration at 3840x2160 x UHD_FRAMES through
+    Encoder.encode_pictures on the card: per access unit seconds, K1 / K2
+    launches per P picture (all > 0), the IDR's wavefront steps, peak
+    card memory, the stream == JAX_UHD; the decode check is submitted to
+    a CPU worker (phase uhd_check). Returns (future, recon digests)."""
+    import torch
+    from svt_hevc_tpu_torch import Encoder, EncoderConfig
+    from svt_hevc_tpu_torch.gpu import intra_pass
+    from svt_hevc_tpu_torch.gpu import kernels as K
+
+    t_phase = time.perf_counter()
+    name = "uhd_2160p"
+    w, h = UHD_SIZES[name]
+    frames = make_frames(UHD_FRAMES, w, h, seed=7)
+    enc = Encoder(EncoderConfig(**uhd_config_kw(name)))
+    names = [k.name for k in _picture_kernels(K)]
+
+    def counts():
+        return np.array([k.launches for k in _picture_kernels(K)]
+                        + [intra_pass.WAVEFRONT["steps"]])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    intra_pass.WAVEFRONT.update(runs=0, steps=0)
+    snaps, times = [counts()], []
+    t_prev = time.perf_counter()
+    aus = []
+    for au in enc.encode_pictures(frames):
+        aus.append(au)
+        t_now = time.perf_counter()
+        times.append(t_now - t_prev)
+        snaps.append(counts())
+        t_prev = t_now
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(aus) == UHD_FRAMES, f"{name}: {len(aus)} access units")
+    # pictures are pipelined one deep: picture k >= 1 dispatches between
+    # the yields of AU k-2 and AU k-1 (pictures 0 and 1 before AU 0)
+    steps = [int(c[-1]) for c in np.diff(snaps, axis=0)]
+    per_p = [snaps[1] - snaps[0]] + [snaps[k] - snaps[k - 1]
+                                    for k in range(2, UHD_FRAMES)]
+    for i, c in enumerate(per_p, start=1):
+        check(all(c[:-1] > 0), f"{name} P picture {i}: launches "
+              f"{dict(zip(names, c[:-1]))}")
+    for k, kname in enumerate(names):
+        results[kname]["launches_uhd_2160p"] = [int(c[k]) for c in per_p]
+    stream = enc.headers() + b"".join(a.data for a in aus)
+    same = check_jax_stream(name, stream)
+    psnr = _psnr([a.recon for a in aus], frames)
+    results[name] = {"au_seconds": times, "max_memory_allocated": peak,
+                     "idr_wavefront_steps": steps[0]}
+    log(f"  {w}x{h} x{UHD_FRAMES} M7 IPPP: access unit s "
+        + " ".join(f"{t:.3f}" for t in times)
+        + f" (the first holds the IDR, {sum(steps)} wavefront steps, and "
+        f"the first P picture's dispatch); PSNR-Y {psnr:.3f} dB; "
+        f"{len(stream)} bytes; peak card memory {peak / 2**30:.2f} GiB")
+    log("  launches per P picture: " + ", ".join(
+        f"{kname} {[int(c[k]) for c in per_p]}"
+        for k, kname in enumerate(names)))
+    log(f"  stream {same}")
+    fut = pool.submit(cpu_uhd_decode, stream)
+    log(f"phase uhd_2160p: {w}x{h} x{UHD_FRAMES} IPPP on the card "
+        f"({time.perf_counter() - t_phase:.3f} s)")
+    return fut, _plane_digests([a.recon for a in
+                                sorted(aus, key=lambda a: a.display_idx)])
+
+
+def phase_uhd_4320p_vbr(results: dict, started, pool):
+    """The command line at 7680x4320 (UHD_CLI_TOKENS, started by
+    uhd_cli_start beside the 1080p phases): per access unit seconds (the
+    first with the lookahead batch and the IDR), K1 / K2 launches per P
+    picture (all > 0), K3's launches in the lookahead (> 0: its batch's
+    34 x 60 grid of window sums takes the two-level plan), QP per
+    picture, kbit/s against -tbr, the subprocess's peak card memory, the
+    CLI's file == JAX_UHD; lookahead_stats of the batch on the card ==
+    the port on the CPU (a worker, every output), and the decode check
+    submitted to a worker (phase uhd_check). Returns (decode future,
+    recon digests)."""
+    import torch
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    from svt_hevc_tpu_torch.gpu.analysis import lookahead_stats
+    from svt_hevc_tpu_torch.io.yuv import read_yuv
+
+    t_phase = time.perf_counter()
+    name = "uhd_4320p_vbr"
+    w, h = UHD_SIZES[name]
+    proc, path, t_start, frames, cpu_la = started
+    ys = uhd_lookahead_batch(frames)
+    out, err = proc.communicate(timeout=1200)
+    t_cli = time.perf_counter() - t_start
+    check(proc.returncode == 0, f"{name}: the command line failed: "
+          f"{err[-3000:]}")
+    with open(path["probe.json"]) as f:
+        probe = json.load(f)
+    rows = probe["rows"]
+    with open(path["out.265"], "rb") as f:
+        stream = f.read()
+    recons = list(read_yuv(path["rec.yuv"], w, h))
+    n = UHD_FRAMES
+    check(len(rows) == n and len(recons) == n,
+          f"{name}: {len(rows)} access units, {len(recons)} recons")
+    names = [k.name for k in K.KERNELS]
+    npk = len(_picture_kernels(K))
+    p_rows = [row for row in rows if row["slice_type"] == 1]
+    check(len(p_rows) == n - 1 and rows[0]["slice_type"] == 2,
+          f"{name}: not one IDR and {n - 1} P pictures")
+    for row in p_rows:
+        check(all(c > 0 for c in row["counts"][:npk]),
+              f"{name} P{row['poc']}: launches {row['counts'][:npk]}")
+    k3 = sum(row["counts"][names.index("ordered_sum")] for row in rows)
+    check(k3 > 0, f"{name}: K3 ordered_sum never launched")
+    for k, kname in enumerate(names):
+        results[kname]["launches_uhd_4320p_vbr"] = [row["counts"][k]
+                                                   for row in rows]
+    same = check_jax_stream(name, stream)
+    qps = _slice_qps(stream)
+    kbps = 8 * len(stream) * 30 / n / 1000.0
+    tbr = int(UHD_CLI_TOKENS[UHD_CLI_TOKENS.index("-tbr") + 1])
+    psnr = _psnr(recons, frames)
+    peak = probe["max_memory_allocated"]
+    results[name] = {"au_seconds": [row["seconds"] for row in rows],
+                     "max_memory_allocated": peak,
+                     "idr_wavefront_steps": rows[0]["counts"][len(names) + 1]}
+    log(f"  {out.strip().splitlines()[-1]}")
+    log(f"  {w}x{h} x{n} 8-bit M7 VBR via the command line ({t_cli:.3f} s "
+        f"from its start): access unit s "
+        + " ".join(f"{row['seconds']:.3f}" for row in rows)
+        + f" (the first holds the lookahead batch and the IDR, "
+        f"{results[name]['idr_wavefront_steps']} wavefront steps); QP per "
+        f"picture {qps}; {kbps:.1f} kbit/s against -tbr {tbr / 1000:.1f}; "
+        f"PSNR-Y {psnr:.3f} dB; {len(stream)} bytes; peak card memory "
+        f"{peak / 2**30:.2f} GiB")
+    log("  launches per access unit: " + ", ".join(
+        f"{kname} {[row['counts'][k] for row in rows]}"
+        for k, kname in enumerate(names)))
+    log(f"  stream {same}")
+    # the lookahead batch on the card == the port on the CPU
+    torch.cuda.reset_peak_memory_stats()
+    got = lookahead_stats(torch.from_numpy(ys).cuda())
+    t_la = _time_lookahead(torch.from_numpy(ys).cuda())
+    la_peak = torch.cuda.max_memory_allocated()
+    want, t_cpu = cpu_la.result()
+    for key in ("zz_sad", "gm_sad", "gm_mv", "hist", "variance"):
+        check(np.array_equal(got[key].cpu().numpy(), want[key]),
+              f"{name}: lookahead_stats {key}: card != CPU")
+    results[name]["lookahead_ms"] = t_la * 1e3
+    results[name]["lookahead_max_memory_allocated"] = la_peak
+    log(f"  lookahead_stats of the {ys.shape[0]}-picture batch at {w}x{h}: "
+        f"card == CPU (every output; the CPU in a worker, {t_cpu:.3f} s); "
+        f"card {t_la * 1e3:.3f} ms per batch, peak card memory "
+        f"{la_peak / 2**30:.2f} GiB; gm_sad {got['gm_sad'].tolist()}")
+    fut = pool.submit(cpu_uhd_decode, stream)
+    log(f"phase uhd_4320p_vbr: {w}x{h} x{n} VBR through the command line "
+        f"on the card (waited {time.perf_counter() - t_phase:.3f} s)")
+    return fut, _plane_digests(recons)
+
+
+def phase_uhd_check(checks: dict):
+    """The port's decoder (in CPU workers) gives back each UHD phase's
+    recon."""
+    t0 = time.perf_counter()
+    for name, (fut, digests) in checks.items():
+        dec, t_dec = fut.result()
+        check(dec == digests, f"{name}: decoded != recon")
+        log(f"  {name}: the port's decoder gives back the recon "
+            f"({len(dec)} pictures, {t_dec:.3f} s in a worker)")
+    log(f"phase uhd_check: both UHD streams decode to their recon "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -2496,6 +2901,7 @@ def main() -> int:
     phase_build()
     results: dict = {}
     phase_kernels(results)
+    phase_kernels_uhd(results)
     phase_subpel()
     phase_main(results)
     import multiprocessing
@@ -2505,11 +2911,13 @@ def main() -> int:
     # one thread each, so the workers and the main process fit the cores
     spawn = multiprocessing.get_context("spawn")
     pool = ProcessPoolExecutor(max_workers=CPU_WORKERS, mp_context=spawn)
-    card_pool = bench_job = None
+    card_pool = bench_job = uhd_cli = None
     try:
         cpu = {name: pool.submit(cpu_reference, job)
                for name, job in cpu_jobs().items()}
         cpu_mesh_job = pool.submit(cpu_mesh, None)
+        # the 4320p command line encodes beside the 1080p phases
+        uhd_cli = uhd_cli_start(pool)
         phase_ra(results)
         phase_cli_1080p(results)
         host_job, host_card = phase_host_1080p(results)
@@ -2518,6 +2926,9 @@ def main() -> int:
         phase_leaves_1080p(results)
         bd_stream, bd_digests = phase_bd_1080p(results)
         cpu_bd = pool.submit(cpu_bd_decode, bd_stream)
+        uhd_checks = {"uhd_2160p": phase_uhd_2160p(results, pool)}
+        uhd_checks["uhd_4320p_vbr"] = phase_uhd_4320p_vbr(results, uhd_cli,
+                                                          pool)
         bench_job = bench_check_start()
         card_pool = ProcessPoolExecutor(max_workers=CARD_WORKERS,
                                         mp_context=spawn,
@@ -2538,9 +2949,12 @@ def main() -> int:
         phase_small_host(cards["small_host"], cpu)
         phase_host_check(host_card, cpu_host)
         phase_bd_check(bd_digests, cpu_bd)
+        phase_uhd_check(uhd_checks)
         phase_bench(bench_job)
     finally:
-        for proc in (bench_job[1] if bench_job is not None else ()):
+        procs = [*(bench_job[1] if bench_job is not None else ()),
+                 *((uhd_cli[0],) if uhd_cli is not None else ())]
+        for proc in procs:
             if proc.poll() is None:
                 proc.kill()
         for p in (card_pool, pool):
@@ -2572,9 +2986,12 @@ def main() -> int:
                "launches_sharded_hme": r["launches_sharded_hme"],
                "launches_ctb64": r["launches_ctb64"],
                "launches_per_p_picture_ctb64":
-                   r["launches_per_p_picture_ctb64"]}
+                   r["launches_per_p_picture_ctb64"],
+               "launches_uhd_2160p": r["launches_uhd_2160p"],
+               "launches_uhd_4320p_vbr": r["launches_uhd_4320p_vbr"]}
         keys = ("device_ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
         row["bd10"] = {k: r["bd10"][k] for k in keys}
+        row["uhd"] = {k: r["uhd"][k] for k in ("shape", *keys)}
         for launch in ("b_launch", "ctb64_launch"):
             if launch in r:
                 row[launch] = {k: r[launch][k] for k in keys}
@@ -2587,7 +3004,11 @@ def main() -> int:
                  "ms": r["device_ms"], "device_ms": r["device_ms"],
                  "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                 "library_ms": None, "launches_cli": r["launches_cli"]})
+                 "library_ms": None, "launches_cli": r["launches_cli"],
+                 "launches_uhd_4320p_vbr": r["launches_uhd_4320p_vbr"],
+                 "uhd": {k: r["uhd"][k] for k in (
+                     "shape", "device_ms", "call_ms", "plain_ms",
+                     "bound_ms", "bound_by")}})
     log(f"card: {card}")
     log(f"chip_smoke.py: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

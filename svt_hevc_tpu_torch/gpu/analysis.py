@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .intra_weights import mode_weight_matrix
-from .kernels import ordered_sum
+from .kernels import SumPlan, ordered_sum
 
 
 def _hadamard(n: int) -> np.ndarray:
@@ -122,43 +122,102 @@ def _inv_f32(count: int, device) -> torch.Tensor:
     return torch.tensor(1.0 / count, dtype=torch.float32, device=device)
 
 
-def xla_window_sums(units: torch.Tensor) -> torch.Tensor:
+def xla_window_sums(units: torch.Tensor):
     """The first level of XLA:CPU's float32 reduce over the last two axes
     of an integer tensor, as exact int64 sums flattened row-major to
-    (..., windows): where an axis is longer than 32, the plane is padded
-    with zeros to multiples of 32 (the lower half of the padding first)
-    and summed in 32x32 windows; a plane of at most 32x32 is its own
-    values. XLA sums a window in a vectorized order that follows the
-    compiling host's ISA, so its window sums equal these exact ones only
-    while they stay below 2^24 units: at 8 and 10 bits every window of
-    the lookahead's decimated SADs does (at most 1024 * 1023 * 16)."""
+    (..., gh * gw), with the grid (gh, gw): where an axis is longer than
+    32, the plane is padded with zeros to multiples of 32 (the lower half
+    of the padding first) and summed in 32x32 windows; a plane of at most
+    32x32 is its own values. XLA sums a window in a vectorized order that
+    follows the compiling host's ISA, so its window sums equal these
+    exact ones only while they stay below 2^24 units: at 8 and 10 bits
+    every window of the lookahead's decimated SADs does (at most 1024 *
+    1023 * 16)."""
     h, w = units.shape[-2:]
     lead = units.shape[:-2]
     if h <= 32 and w <= 32:
-        return units.to(torch.int64).reshape(*lead, h * w)
+        return units.to(torch.int64).reshape(*lead, h * w), (h, w)
     ph, pw = -h % 32, -w % 32
     u = torch.nn.functional.pad(units, (pw // 2, pw - pw // 2, ph // 2,
                                         ph - ph // 2))
-    return u.reshape(*lead, (h + ph) // 32, 32, (w + pw) // 32, 32).sum(
-        (-3, -1), dtype=torch.int64).reshape(*lead, -1)
+    gh, gw = (h + ph) // 32, (w + pw) // 32
+    return (u.reshape(*lead, gh, 32, gw, 32).sum(
+        (-3, -1), dtype=torch.int64).reshape(*lead, -1), (gh, gw))
 
 
-def xla_sum_f32(parts: torch.Tensor, scale: int) -> torch.Tensor:
-    """float32 sums of xla_window_sums' windows (in 1/scale units), added
-    one after another in row-major order from 0, as XLA:CPU reduces the
-    window sums (kernels.ordered_sum). With exact window sums the result
-    equals the jitted JAX sum bit for bit under every vector ISA the
-    graph is compiled for (held by tests/test_torch_float32_sites.py at
-    1080p, where the chain passes 2^24 units; a grid of more than 32 x 32
-    windows, a plane beyond 4096 x 4096 values, is not held)."""
-    return ordered_sum((parts.to(torch.float64) / scale).to(torch.float32))
+# the largest grid of window sums whose order was measured: the
+# lookahead's at the largest frame the encoder accepts (8192x4320, a
+# 1080x2048 decimated plane)
+PLAN_MAX_GRID = (34, 64)
 
 
-def _mean_f32(parts: torch.Tensor, scale: int, count: int) -> torch.Tensor:
+def _row_lanes(gh: int, gw: int) -> int:
+    """The lanes of XLA:CPU's one-step reduce of a gh x gw grid (at most 32
+    x 32) in the reference compile: LLVM vectorizes the loop over the
+    grid's rows of a narrow grid (2 to 8 columns) at some row counts."""
+    if not 2 <= gw <= 8 or gh < 2:
+        return 1
+    if gh in (2, 4, 8):
+        return gh
+    if gh < 16:
+        return 1
+    if 20 <= gh <= 23 or (28 <= gh <= 31 and gw > 2):
+        return 4
+    return 8 if gw <= 6 else 4
+
+
+def xla_reduce_plan(gh: int, gw: int) -> SumPlan:
+    """The order in which XLA:CPU, compiled for the reference host (the
+    default compile of an AVX-512 host), adds a gh x gw grid of float32
+    window sums (xla_window_sums) to one value, as a K3 plan (SumPlan).
+
+    A grid of at most 32 x 32 is reduced in one step: row by row, left
+    to right, except the narrow grids whose rows LLVM spreads over 2 to
+    8 lanes (_row_lanes). A larger grid gets a second level of
+    reduce-windows: wh x ww windows (32 on an axis longer than 32, else
+    the whole axis) after zero padding to a multiple of 32 (the lower
+    half first), each summed row by row, left to right, except that with
+    one padding column (63 columns) the window's last column comes last;
+    then the windows, row by row. Measured for every grid up to
+    PLAN_MAX_GRID, with the compile cache off, by revealing the add tree
+    of each grid and checking the plan on random sums (ROADMAP §3);
+    larger grids raise. Under an AVX2 or SSE4_2 compile XLA spreads more
+    grids over lanes (e.g. every single-step grid of 2, 4, 8 or 16 or
+    more rows and 9 to 32 columns, which a 2160p lookahead's 17 x 30 is):
+    the port keeps the reference compile's order."""
+    if gh > PLAN_MAX_GRID[0] or gw > PLAN_MAX_GRID[1]:
+        raise ValueError(f"no measured XLA reduce order for a {gh} x {gw} "
+                         f"grid of window sums")
+    if gh <= 32 and gw <= 32:
+        return SumPlan(gh, gw, gh, gw, lanes=_row_lanes(gh, gw))
+
+    def axis(n):
+        if n <= 32:
+            return n, 0, 1, 0
+        p = -n % 32
+        return 32, p // 2, (n + p) // 32, p
+
+    wh, ph, oh, _ = axis(gh)
+    ww, pw, ow, pad_w = axis(gw)
+    return SumPlan(gh, gw, wh, ww, ph, pw, oh, ow, split=int(pad_w == 1))
+
+
+def xla_sum_f32(parts: torch.Tensor, grid, scale: int) -> torch.Tensor:
+    """float32 sums of xla_window_sums' windows (in 1/scale units, over a
+    grid of gh x gw windows) in XLA:CPU's order (xla_reduce_plan,
+    kernels.ordered_sum). With exact window sums the result equals the
+    jitted JAX sum of the reference compile bit for bit (held by
+    tests/test_torch_float32_sites.py and tests/test_torch_rc.py)."""
+    return ordered_sum((parts.to(torch.float64) / scale).to(torch.float32),
+                       xla_reduce_plan(*grid))
+
+
+def _mean_f32(parts: torch.Tensor, grid, scale: int,
+              count: int) -> torch.Tensor:
     """The float32 mean XLA computes of count values given by their
-    window sums (xla_window_sums) in 1/scale units: xla_sum_f32 times the
-    float32 reciprocal of the count."""
-    return xla_sum_f32(parts, scale) * _inv_f32(count, parts.device)
+    window sums and grid (xla_window_sums) in 1/scale units: xla_sum_f32
+    times the float32 reciprocal of the count."""
+    return xla_sum_f32(parts, grid, scale) * _inv_f32(count, parts.device)
 
 
 def exact_variance_f32(y: torch.Tensor) -> torch.Tensor:
@@ -191,12 +250,15 @@ def lookahead_stats(ys: torch.Tensor) -> dict:
 
     The decimated planes are integer 4x4 sums (1/16 units of the JAX
     float32 means, which are exact). zz_sad and gm_sad equal the jitted
-    JAX values bit for bit under every compile: the SADs are summed in
-    XLA's order (exact 32x32 window sums, xla_window_sums, then one
-    float32 chain over the windows, xla_sum_f32: K3 on the card), which
-    decides their rounding
-    once a SAD passes 2^24 sixteenths (1080p with a mean decimated
-    difference above 8 samples). The variance is host-dependent in the
+    JAX values of the reference compile bit for bit: the SADs are summed
+    in XLA's order (exact 32x32 window sums, xla_window_sums, then the
+    float32 reduce of the grid of window sums in xla_reduce_plan's order,
+    xla_sum_f32: K3 on the card), which decides their rounding once a SAD
+    passes 2^24 sixteenths (1080p with a mean decimated difference above
+    8 samples). That order is the same under the AVX2 and SSE4_2
+    compiles for most grids (1080p's 9 x 15, 4320p's 34 x 60 among
+    them) and differs for some (2160p's 17 x 30; xla_reduce_plan says
+    which). The variance is host-dependent in the
     reference: XLA's inner order of its float32 sum of squares follows
     the compiling host's vector ISA. The port keeps the exact variance
     rounded once (exact_variance_f32); the JAX values lie within a few
@@ -207,7 +269,7 @@ def lookahead_stats(ys: torch.Tensor) -> dict:
     n_dec = hd * wd
     yi = ys.to(torch.int32)
     dec = yi.reshape(t, hd, 4, wd, 4).sum((2, 4), dtype=torch.int32)
-    zz = _mean_f32(xla_window_sums((dec[1:] - dec[:-1]).abs()), 16, n_dec)
+    zz = _mean_f32(*xla_window_sums((dec[1:] - dec[:-1]).abs()), 16, n_dec)
 
     r = _GM_R
     s2 = 2 * r + 1
@@ -221,8 +283,9 @@ def lookahead_stats(ys: torch.Tensor) -> dict:
     for dy in range(s2):
         band = pad[:, dy:dy + hd]
         sh = torch.stack([band[:, :, dx:dx + wd] for dx in range(s2)])
-        rows.append(xla_window_sums((cur[None] - sh).abs()))
-    sads = _mean_f32(torch.cat(rows), 16, n_dec)            # (289, T-1)
+        parts, grid = xla_window_sums((cur[None] - sh).abs())
+        rows.append(parts)
+    sads = _mean_f32(torch.cat(rows), grid, 16, n_dec)      # (289, T-1)
     gm_sad = sads.min(0).values
     idx = torch.arange(s2 * s2, device=ys.device)[:, None].expand_as(sads)
     k = torch.where(sads == gm_sad[None], idx, s2 * s2).min(0).values

@@ -4,10 +4,10 @@ K1 ``sad_field`` (csrc/sad_field.cu) replaces the Pallas
 ``sad_field_pallas``; K2 ``mc_block`` (csrc/mc_block.cu) replaces
 ``mc_block_pallas``. K3 ``ordered_sum`` (csrc/ordered_sum.cu) is the
 counterpart of an XLA:CPU reduction, not of a Pallas kernel: float32
-sums in XLA's order where that order decides the rounding. Each source
-is compiled by hand with nvcc for sm_90a into ``build/`` at the
-repository root on first use and bound with ctypes (plain C entry
-points; pointers and the stream as c_void_p).
+sums in XLA's order (a ``SumPlan``) where that order decides the
+rounding. Each source is compiled by hand with nvcc for sm_90a into
+``build/`` at the repository root on first use and bound with ctypes
+(plain C entry points; pointers and the stream as c_void_p).
 
 Beside each kernel sits its plain PyTorch version (``sad_field_ref``,
 ``mc_block_ref``, ``ordered_sum_ref``). A wrapper takes the plain version
@@ -27,6 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -106,7 +107,7 @@ MC_BLOCK = CudaKernel("mc_block", "mc_block.cu", "mc_block_launch",
                       [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _I, _I, _P])
 ORDERED_SUM = CudaKernel("ordered_sum", "ordered_sum.cu",
-                         "ordered_sum_launch", [_P, _P, _I, _I, _P])
+                         "ordered_sum_launch", [_P, _P, *[_I] * 11, _P])
 KERNELS = (SAD_FIELD, MC_BLOCK, ORDERED_SUM)
 
 
@@ -156,11 +157,10 @@ def ptxas_summary(log: str) -> list[str]:
 
 def _kernel_name(mangled: str) -> str:
     """'..15mc_block_kernelILi8ELi8ELb1EEEv..' -> 'mc_block_kernel<8,8,1>';
-    '..18ordered_sum_kernelEPKfPfii' -> 'ordered_sum_kernel'."""
+    '..18ordered_sum_kernelILi8EEEv..' -> 'ordered_sum_kernel<8>'."""
     m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EE", mangled)
     if not m:
-        m = re.search(r"\d+([a-z_]+_kernel)E", mangled)
-        return m.group(1) if m else mangled
+        return mangled
     args = re.findall(r"L[ib](-?\d+)", m.group(2))
     return f"{m.group(1)}<{','.join(args)}>"
 
@@ -379,23 +379,82 @@ def mc_block(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
 
 # ------------------------------------------------------ K3 ordered sum
 
-def ordered_sum_ref(parts: torch.Tensor) -> torch.Tensor:
+class SumPlan(NamedTuple):
+    """An order of float32 adds over a gh x gw grid of values (K3's; see
+    csrc/ordered_sum.cu): an oh x ow grid of wh x ww windows after ph rows
+    and pw columns of zero padding above and left; in a window the first
+    wh - wh % lanes rows go round-robin to `lanes` lanes (each lane adds
+    its rows' values row by row, left to right), the lanes are combined
+    by halving, then the remaining rows are added row by row; with
+    `split` the window's last column is added last, top to bottom; the
+    windows of an output row are added left to right, the output rows
+    top to bottom. Every sum starts from +0."""
+    gh: int
+    gw: int
+    wh: int
+    ww: int
+    ph: int = 0
+    pw: int = 0
+    oh: int = 1
+    ow: int = 1
+    lanes: int = 1
+    split: int = 0
+
+
+def _plan_window(parts, q: SumPlan, a: int, b: int, acc0):
+    """One window's sum under plan q, vectorized over parts' leading axes
+    (parts (..., gh, gw) float32)."""
+    def add_rows(acc, rows, c0, c1):
+        for r in rows:
+            if 0 <= r < q.gh:
+                for c in range(max(c0, 0), min(c1, q.gw)):
+                    acc = acc + parts[..., r, c]
+        return acc
+
+    r0, c0 = a * q.wh - q.ph, b * q.ww - q.pw
+    body = c0 + q.ww - q.split
+    main = q.wh - q.wh % q.lanes
+    lanes = [add_rows(acc0, range(r0 + i, r0 + main, q.lanes), c0, body)
+             for i in range(q.lanes)]
+    h = q.lanes // 2
+    while h:
+        lanes = [lanes[i] + lanes[i + h] for i in range(h)]
+        h //= 2
+    w = add_rows(lanes[0], range(r0 + main, r0 + q.wh), c0, body)
+    if q.split:
+        w = add_rows(w, range(r0, r0 + q.wh), c0 + q.ww - 1, c0 + q.ww)
+    return w
+
+
+def ordered_sum_ref(parts: torch.Tensor, q: SumPlan) -> torch.Tensor:
     """Plain version of K3: the float32 sum of parts (..., L) over its last
-    axis, added left to right from 0, each add rounded in float32."""
-    acc = torch.zeros(parts.shape[:-1], dtype=torch.float32,
-                      device=parts.device)
-    for i in range(parts.shape[-1]):
-        acc = acc + parts[..., i]
-    return acc
+    axis, L = gh * gw values of a grid in row-major order, added in plan
+    q's order (SumPlan; a left-to-right chain over L values is the plan
+    of an L x 1 grid), each add rounded in float32."""
+    grid = parts.reshape(*parts.shape[:-1], q.gh, q.gw)
+    zero = torch.zeros(parts.shape[:-1], dtype=torch.float32,
+                       device=parts.device)
+    total = zero
+    for a in range(q.oh):
+        row = zero
+        for b in range(q.ow):
+            row = row + _plan_window(grid, q, a, b, zero)
+        total = total + row
+    return total
 
 
-def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
-    """K3: float32 (..., L) -> (...), the sum of each row in XLA:CPU's
-    row-major chain order (see ordered_sum_ref)."""
+def ordered_sum(parts: torch.Tensor, q: SumPlan) -> torch.Tensor:
+    """K3: float32 (..., L) -> (...), the sum of each row in plan q's
+    order (see ordered_sum_ref)."""
     if parts.dtype != torch.float32:
         raise ValueError(f"ordered_sum: float32 parts, got {parts.dtype}")
+    if parts.shape[-1] != q.gh * q.gw:
+        raise ValueError(f"ordered_sum: {parts.shape[-1]} values for a "
+                         f"{q.gh} x {q.gw} plan")
+    if q.lanes not in (1, 2, 4, 8):
+        raise ValueError(f"ordered_sum: 1, 2, 4 or 8 lanes, got {tuple(q)}")
     if parts.device.type == "cpu":
-        return ordered_sum_ref(parts)
+        return ordered_sum_ref(parts, q)
     if parts.device.type != "cuda":
         raise ValueError(f"ordered_sum: unsupported device {parts.device}")
     lead, length = parts.shape[:-1], parts.shape[-1]
@@ -404,6 +463,6 @@ def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     with torch.cuda.device(parts.device):
-        ORDERED_SUM.launch(cols.data_ptr(), out.data_ptr(), length,
+        ORDERED_SUM.launch(cols.data_ptr(), out.data_ptr(), *q,
                            cols.shape[1], _stream(parts.device))
     return out

@@ -56,6 +56,7 @@ if ROOT not in sys.path:
 ISAS = {"default": "", "avx2": "--xla_cpu_max_isa=AVX2",
         "sse4_2": "--xla_cpu_max_isa=SSE4_2"}
 WORKER_TIMEOUT_S = 600
+UHD_WORKER_TIMEOUT_S = 3600
 
 
 # ------------------------------------------------------------- inputs
@@ -99,10 +100,31 @@ def vbr_first_batch(name: str) -> np.ndarray:
     return np.stack([ys[0]] + ys)
 
 
+# lookahead lumas whose grid of 32x32 SAD windows XLA reduces in two
+# levels (more than 32 windows on an axis: a luma axis past 4096) or over
+# row lanes (a narrow grid: 480x720's 4 x 6)
+WIDE_LA = ((1088, 4224), (4224, 1088), (64, 8192), (480, 720))
+
+
+def wide_la_lumas(h, w, bd, cut) -> np.ndarray:
+    """T = 2 lumas: a noisy texture panned by (2, -3) pixels, or followed
+    by a scene cut to a brighter picture, so the SADs pass 2^24
+    sixteenths."""
+    rng = np.random.default_rng(h + w + bd)
+    hi = 1 << bd
+    base = rng.integers(0, hi, (h + 8, w + 8))
+    y0 = base[2:h + 2, :w]
+    if cut:
+        y1 = rng.integers(3 * hi // 4, hi, (h, w))
+    else:
+        y1 = base[:h, 3:w + 3] + rng.integers(0, 5, (h, w))
+    return np.clip(np.stack([y0, y1]), 0, hi - 1).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def la_inputs() -> dict:
     """(T, H, W) int32 luma runs for lookahead_stats: those of
-    tests/test_torch_rc.py, and 1080p runs past 2^24."""
+    tests/test_torch_rc.py, 1080p runs past 2^24, and WIDE_LA's."""
     out = {f"rc_{bd}_{t}_{h}x{w}": _rc_lumas(bd, t, h, w, seed=bd + t)
            for bd, t, h, w in ((8, 6, 64, 128), (10, 5, 128, 256),
                                (8, 2, 32, 48))}
@@ -121,6 +143,11 @@ def la_inputs() -> dict:
     # a lookahead batch of ten 10-bit pictures, each a cut (uniform noise)
     out["batch10_10bit_544x960"] = np.random.default_rng(9).integers(
         0, 1024, (10, 544, 960)).astype(np.int32)
+    for h, w in WIDE_LA:
+        for bd in (8, 10):
+            for cut in (False, True):
+                out[f"wide_{bd}bit_{'cut' if cut else 'pan'}_{h}x{w}"] = \
+                    wide_la_lumas(h, w, bd, cut)
     return out
 
 
@@ -193,6 +220,67 @@ def frontend_inputs() -> dict:
                 np.int32)}
 
 
+# The UHD input set (3840x2160 and 7680x4320, natural content of
+# chip_smoke.make_frames at 8 and 10 bits), read only by --table and the
+# slow tests/test_torch_parity_uhd.py: a 4320p lookahead batch takes
+# seconds and gigabytes in each compile's worker
+UHD_SIZES = ((3840, 2160), (7680, 4320))
+UHD_LA = tuple(f"uhd_{h}p_{bd}bit_cut" for _, h in UHD_SIZES
+               for bd in (8, 10))
+UHD_DENOISE = tuple(f"uhd_{kind}_{bd}bit_{h}p" for _, h in UHD_SIZES
+                    for bd in (8, 10)
+                    for kind in ("ramp", "nat_sd1.5", "nat_sd4.0"))
+UHD_PLANE = tuple(f"af_uhd_nat_{bd}bit_2176x3840" for bd in (8, 10))
+UHD_FRONTEND = ("uhd_4x2176x3840",)
+UHD_GROUP = UHD_LA + UHD_DENOISE + UHD_PLANE + UHD_FRONTEND
+
+
+@functools.lru_cache(maxsize=None)
+def uhd_inputs() -> dict:
+    """{kind: {name: input}} of the UHD set: lookahead runs (two pictures
+    of a pan, then a scene cut) at 2160p and 4320p; denoise_plane's
+    near-flat ramp (whose flat count passes 2^24 at 4320p) and natural
+    lumas with noise of sd 1.5 and 4.0; analyze_frame / block_variance /
+    ctb_activity planes at 2160p (2176 rows: a multiple of 64); the
+    mesh frontend's four pictures at 2160p, whose cost total passes
+    2^24."""
+    out = {"la": {}, "denoise": {}, "plane": {}, "frontend": {}}
+    for w, h in UHD_SIZES:
+        for bd in (8, 10):
+            mx = (1 << bd) - 1
+            pan = _frames(2, w, h, 7, bit_depth=bd)
+            cut = _frames(1, w, h, 8, bit_depth=bd)
+            out["la"][f"uhd_{h}p_{bd}bit_cut"] = np.stack(
+                [np.asarray(f.y, np.int32) for f in pan + cut])
+            out["denoise"][f"uhd_ramp_{bd}bit_{h}p"] = (
+                _noise_plane(h, w, bd, 0.0, seed=bd), mx)
+            for sd in (1.5, 4.0):
+                f = _frames(1, w, h, 7, noise=sd, bit_depth=bd)[0]
+                out["denoise"][f"uhd_nat_sd{sd}_{bd}bit_{h}p"] = (
+                    np.asarray(f.y, np.int32), mx)
+    for bd in (8, 10):
+        out["plane"][f"af_uhd_nat_{bd}bit_2176x3840"] = np.asarray(
+            _frames(1, 3840, 2176, 7, bit_depth=bd)[0].y, np.int32)
+    out["frontend"]["uhd_4x2176x3840"] = np.stack(
+        [np.asarray(f.y, np.int32) for f in _frames(4, 3840, 2176, 9)])
+    return out
+
+
+def inputs_of(kind: str, names=None) -> dict:
+    """The inputs of one kind ("la", "plane", "denoise", "frontend"): every
+    regular one, or the named ones (UHD_GROUP's included)."""
+    regular = {"la": la_inputs, "plane": plane_inputs,
+               "denoise": denoise_inputs, "frontend": frontend_inputs}[kind]
+    if names is None:
+        return regular()
+    names = set(names)
+    out = {k: v for k, v in regular().items() if k in names}
+    if names & set(UHD_GROUP):
+        out.update((k, v) for k, v in uhd_inputs()[kind].items()
+                   if k in names)
+    return out
+
+
 def fma_input():
     """a + b * c operands whose product is no float32 integer."""
     rng = np.random.default_rng(27)
@@ -208,10 +296,14 @@ def box2_input():
             ).astype(np.float32)
 
 
-# The two arithmetic models of each state-3 value, the port's first: a
+# The arithmetic models of each state-3 value, the port's first: a
 # float32 product feeding an add, contracted into one multiply-add or
-# rounded twice; a float32 sum over a 2x2 window, row by row or pairwise
+# rounded twice; a float32 sum over a 2x2 window, row by row or pairwise;
+# a 2160p lookahead SAD's grid reduced row by row or over 8 or 4 row
+# lanes (la_sad_models)
 def _models(key: str) -> dict:
+    if key.startswith("la/"):
+        return la_sad_models(key)
     if key.startswith("fma/"):
         a, b, c = fma_input()
         return {"fused": (a.astype(np.float64) + np.float64(b) * c).astype(
@@ -270,16 +362,12 @@ def _jax_site_values(inputs=None) -> dict:
     def want(k):
         return inputs is None or k in inputs
 
-    for k, ys in la_inputs().items():
-        if not want(k):
-            continue
+    for k, ys in inputs_of("la", inputs).items():
         r = la(jnp.asarray(ys))
         for f in ("variance", "zz_sad", "gm_sad"):
             out[f"la/{k}/{f}"] = np.asarray(r[f])
     bv = jax.jit(ja.block_variance, static_argnums=1)
-    for k, y in plane_inputs().items():
-        if not want(k):
-            continue
+    for k, y in inputs_of("plane", inputs).items():
         yf = jnp.asarray(y, jnp.float32)
         for n in (8, 16, 32):
             out[f"bv{n}/{k}"] = np.asarray(bv(yf, n))
@@ -289,9 +377,7 @@ def _jax_site_values(inputs=None) -> dict:
             a = ja.analyze_frame(yf)
             for n in (8, 16, 32):
                 out[f"af_var{n}/{k}"] = np.asarray(a[f"var{n}"])
-    for k, (p, mx) in denoise_inputs().items():
-        if not want(k):
-            continue
+    for k, (p, mx) in inputs_of("denoise", inputs).items():
         out[f"sigma/{k}"] = np.asarray(ja.denoise_plane(jnp.asarray(p),
                                                         maxval=mx)[1])
     box = jax.jit(je._boxsum, static_argnums=1)
@@ -315,9 +401,7 @@ def _jax_site_values(inputs=None) -> dict:
         from svt_hevc_tpu.parallel import frontend_step, make_mesh
         from tests.test_torch_parallel import WORLD
         step, in_sh = frontend_step(make_mesh(WORLD))
-        for k, frames in frontend_inputs().items():
-            if not want(k):
-                continue
+        for k, frames in inputs_of("frontend", inputs).items():
             out[f"frontend_total/{k}"] = np.asarray(step(jax.device_put(
                 jnp.asarray(frames, jnp.float32), in_sh))[1])
     return out
@@ -340,14 +424,15 @@ def jax_env(isa: str) -> dict:
                 JAX_PLATFORMS="cpu")
 
 
-def run_worker(script: str, isa: str, args=()) -> dict:
+def run_worker(script: str, isa: str, args=(),
+               timeout: float = WORKER_TIMEOUT_S) -> dict:
     """The arrays that `python script --worker OUT.npz *args` saves when
     run in a subprocess under jax_env(isa)."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "values.npz")
         r = subprocess.run([sys.executable, script, "--worker", path, *args],
                            env=jax_env(isa), cwd=ROOT, capture_output=True,
-                           text=True, timeout=WORKER_TIMEOUT_S)
+                           text=True, timeout=timeout)
         assert r.returncode == 0, r.stderr[-3000:]
         with np.load(path) as z:
             return {k: z[k] for k in z.files}
@@ -358,26 +443,29 @@ def jax_values(isa: str, inputs: tuple | None = None) -> dict:
     """The JAX values under one fresh compile (of every input, or of the
     named inputs), computed in a subprocess under jax_env(isa)."""
     args = () if inputs is None else ("--inputs", ",".join(inputs))
-    return run_worker(os.path.abspath(__file__), isa, args)
+    uhd = inputs is not None and bool(set(inputs) & set(UHD_GROUP))
+    return run_worker(os.path.abspath(__file__), isa, args,
+                      UHD_WORKER_TIMEOUT_S if uhd else WORKER_TIMEOUT_S)
 
 
 # ------------------------------------------------------ the port side
 
-def port_site_values() -> dict:
-    """The port's value of every site on every input (CPU tensors). The
-    frontend total is frontend_step's rule on one rank: the float64 sum
-    of analyze_frame's cost maps, rounded to float32 once
-    (tests/test_torch_parallel.py holds the step itself on 4 ranks)."""
+def port_site_values(inputs=None) -> dict:
+    """The port's value of every site on every input, or on the named
+    inputs only (CPU tensors). The frontend total is frontend_step's rule
+    on one rank: the float64 sum of analyze_frame's cost maps, rounded
+    to float32 once (tests/test_torch_parallel.py holds the step itself
+    on 4 ranks)."""
     from svt_hevc_tpu_torch.gpu import analysis as ta
     from svt_hevc_tpu_torch.gpu import encode as te
     from svt_hevc_tpu_torch.gpu import sao as ts
 
     out = {}
-    for k, ys in la_inputs().items():
+    for k, ys in inputs_of("la", inputs).items():
         r = ta.lookahead_stats(torch.from_numpy(ys))
         for f in ("variance", "zz_sad", "gm_sad"):
             out[f"la/{k}/{f}"] = r[f].numpy()
-    for k, y in plane_inputs().items():
+    for k, y in inputs_of("plane", inputs).items():
         yt = torch.from_numpy(y)
         for n in (8, 16, 32):
             out[f"bv{n}/{k}"] = ta.block_variance(yt, n).numpy()
@@ -387,9 +475,18 @@ def port_site_values() -> dict:
             a = ta.analyze_frame(yt)
             for n in (8, 16, 32):
                 out[f"af_var{n}/{k}"] = a[f"var{n}"].numpy()
-    for k, (p, mx) in denoise_inputs().items():
+    for k, (p, mx) in inputs_of("denoise", inputs).items():
         out[f"sigma/{k}"] = ta.denoise_plane(torch.from_numpy(p),
                                              maxval=mx)[1].numpy()
+    for k, frames in inputs_of("frontend", inputs).items():
+        tot = 0.0
+        for f in frames:
+            a = ta.analyze_frame(torch.from_numpy(f))
+            tot += sum(float(a[f"cost{n}"].to(torch.float64).sum())
+                       for n in (4, 8, 16, 32))
+        out[f"frontend_total/{k}"] = np.float32(tot)
+    if inputs is not None:
+        return out
     for e_max in SSE_CASES:
         for s in (32, 64):
             out[f"sse{s}/e{e_max}"] = te._isum_box_f32(
@@ -401,13 +498,6 @@ def port_site_values() -> dict:
     cnt, sums = sao_input(seed=1)
     out["sao_eo_gain/10bit"] = ts._eo_offsets_gains(
         torch.from_numpy(cnt), torch.from_numpy(sums), 31)[1].numpy()
-    for k, frames in frontend_inputs().items():
-        tot = 0.0
-        for f in frames:
-            a = ta.analyze_frame(torch.from_numpy(f))
-            tot += sum(float(a[f"cost{n}"].to(torch.float64).sum())
-                       for n in (4, 8, 16, 32))
-        out[f"frontend_total/{k}"] = np.float32(tot)
     return out
 
 
@@ -468,22 +558,24 @@ def np_sse(sq: np.ndarray, s: int) -> np.ndarray:
         (1, 3)).astype(np.float32)
 
 
-def exact_site_values() -> dict:
-    """The float64 reference, rounded once, of every host-dependent site."""
+def exact_site_values(inputs=None) -> dict:
+    """The float64 reference, rounded once, of every host-dependent site
+    (on every input, or on the named inputs only)."""
     out = {}
-    for k, ys in la_inputs().items():
+    for k, ys in inputs_of("la", inputs).items():
         out[f"la/{k}/variance"] = np_variance(ys)[1:]
-    for k, y in plane_inputs().items():
+    for k, y in inputs_of("plane", inputs).items():
         for n in (8, 16, 32):
             out[f"bv{n}/{k}"] = np_block_variance(y, n)
             if k.startswith("af_"):
                 out[f"af_var{n}/{k}"] = out[f"bv{n}/{k}"]
         for c in (32, 64):
             out[f"ctb{c}/{k}"] = np_ctb_activity(y, c)
-    for k, (p, mx) in denoise_inputs().items():
+    for k, (p, mx) in inputs_of("denoise", inputs).items():
         out[f"sigma/{k}"] = np_sigma(p, mx)
-    for s in (32, 64):
-        out[f"sse{s}/e255"] = np_sse(sse_input(255), s)
+    if inputs is None:
+        for s in (32, 64):
+            out[f"sse{s}/e255"] = np_sse(sse_input(255), s)
     return out
 
 
@@ -510,11 +602,62 @@ SITES = {
 }
 
 
+def site_of(key: str) -> str:
+    """The site a value key belongs to."""
+    for site, ((head, *tails), _) in SITES.items():
+        if key.startswith(head) and (not tails
+                                     or any(key.endswith(t) for t in tails)):
+            return site
+    raise KeyError(key)
+
+
 def site_keys(site: str, keys) -> list:
-    pre = SITES[site][0]
-    head, tails = pre[0], pre[1:]
-    return sorted(k for k in keys if k.startswith(head)
-                  and (not tails or any(k.endswith(t) for t in tails)))
+    return sorted(k for k in keys if site_of(k) == site)
+
+
+def uhd_la_sads_2160p(key: str) -> bool:
+    """Whether key is a lookahead SAD of the UHD set at 2160p, whose grid
+    of window sums (17 x 30) the reference compile reduces row by row and
+    the AVX2 and SSE4_2 compiles over 8 and 4 row lanes (ROADMAP §3): a
+    state-3 value."""
+    return key.startswith("la/uhd_2160p") and not key.endswith("/variance")
+
+
+# The reference compile's 2160p lookahead SADs of the UHD set (state 3),
+# as float32 bits: the default compile of an AVX-512 host, the compile
+# cache off (--table --set uhd, which found the port's values equal)
+UHD_LA_RECORDS = {
+    "la/uhd_2160p_8bit_cut/zz_sad": (0x40E3DC8C, 0x41311B51),
+    "la/uhd_2160p_8bit_cut/gm_sad": (0x40E39BA9, 0x4130AD23),
+    "la/uhd_2160p_10bit_cut/zz_sad": (0x41E3E12E, 0x42311C4A),
+    "la/uhd_2160p_10bit_cut/gm_sad": (0x41E39E73, 0x4230AECB),
+}
+
+
+def state_of(key: str) -> int:
+    """The state of the value key (SITES; 3 for uhd_la_sads_2160p)."""
+    return 3 if uhd_la_sads_2160p(key) else SITES[site_of(key)][1]
+
+
+def la_sad_models(key: str) -> dict:
+    """The models of a state-3 lookahead SAD (uhd_la_sads_2160p): the
+    port's value under the reference compile's plan, then under the same
+    plan with 8 and with 4 row lanes."""
+    from svt_hevc_tpu_torch.gpu import analysis as ta
+    _, name, field = key.split("/")
+    ys = torch.from_numpy(uhd_inputs()["la"][name])
+    plan = ta.xla_reduce_plan
+    out = {}
+    for label, lanes in (("reference", None), ("lanes 8", 8),
+                         ("lanes 4", 4)):
+        if lanes is not None:
+            ta.xla_reduce_plan = (lambda gh, gw, n=lanes:
+                                  plan(gh, gw)._replace(lanes=n))
+        try:
+            out[label] = ta.lookahead_stats(ys)[field].numpy()
+        finally:
+            ta.xla_reduce_plan = plan
+    return out
 
 
 def ulps(a, b) -> int:
@@ -524,37 +667,47 @@ def ulps(a, b) -> int:
     return int(np.abs(ia - ib).max()) if ia.size else 0
 
 
-def _table() -> None:
-    vals = {isa: jax_values(isa) for isa in ISAS}
-    port = port_site_values()
-    exact = exact_site_values()
+def _table(which: str = "all") -> None:
+    """Print every value's measurements, then SPREAD_ULPS: which is
+    "regular" (the inputs the tests read), "uhd" (UHD_GROUP) or "all"."""
+    sets = {"regular": [None], "uhd": [UHD_GROUP],
+            "all": [None, UHD_GROUP]}[which]
+    vals = {isa: {} for isa in ISAS}
+    port, exact = {}, {}
+    for names in sets:
+        for isa in ISAS:
+            vals[isa].update(jax_values(isa, names))
+        port.update(port_site_values(names))
+        exact.update(exact_site_values(names))
     spreads = {}
-    for site, (_, state) in SITES.items():
-        for k in site_keys(site, vals["default"]):
-            row = [vals[isa][k] for isa in ISAS]
-            ref = exact.get(k, port[k])
-            if state == 3:
-                models = _models(k)
-                print(json.dumps({"site": site, "value": k, "state": 3,
-                                  "model_of_each_compile": {
-                                      i: [n for n, m in models.items()
-                                          if np.array_equal(r, m)]
-                                      for i, r in zip(ISAS, row)}}))
-                continue
-            for isa, r in zip(ISAS, row):
-                if ulps(r, ref):
-                    spreads.setdefault(isa, {})[k] = ulps(r, ref)
-            print(json.dumps({
-                "site": site, "value": k, "state": state,
-                "isa_independent": all(np.array_equal(row[0], r)
-                                       for r in row[1:]),
-                "ulps_between_isas": max(ulps(row[0], r) for r in row[1:]),
-                "ulps_jax_vs_port": {i: ulps(r, port[k])
-                                     for i, r in zip(ISAS, row)},
-                "port_is_reference": bool(np.array_equal(port[k], ref)),
-                "first": {i: float(np.ravel(r)[0])
-                          for i, r in zip(ISAS, row)},
-                "port_first": float(np.ravel(port[k])[0])}))
+    for k in sorted(vals["default"], key=lambda k: (site_of(k), k)):
+        site, state = site_of(k), state_of(k)
+        row = [vals[isa][k] for isa in ISAS]
+        ref = exact.get(k, port[k])
+        if state == 3:
+            models = _models(k)
+            print(json.dumps({"site": site, "value": k, "state": 3,
+                              "port_is_first_model": bool(np.array_equal(
+                                  port[k], next(iter(models.values())))),
+                              "model_of_each_compile": {
+                                  i: [n for n, m in models.items()
+                                      if np.array_equal(r, m)]
+                                  for i, r in zip(ISAS, row)}}))
+            continue
+        for isa, r in zip(ISAS, row):
+            if ulps(r, ref):
+                spreads.setdefault(isa, {})[k] = ulps(r, ref)
+        print(json.dumps({
+            "site": site, "value": k, "state": state,
+            "isa_independent": all(np.array_equal(row[0], r)
+                                   for r in row[1:]),
+            "ulps_between_isas": max(ulps(row[0], r) for r in row[1:]),
+            "ulps_jax_vs_port": {i: ulps(r, port[k])
+                                 for i, r in zip(ISAS, row)},
+            "port_is_reference": bool(np.array_equal(port[k], ref)),
+            "first": {i: float(np.ravel(r)[0])
+                      for i, r in zip(ISAS, row)},
+            "port_first": float(np.ravel(port[k])[0])}))
     print("SPREAD_ULPS = " + json.dumps(spreads, indent=4))
 
 
@@ -573,11 +726,30 @@ SPREAD_ULPS = {
         "la/rc_cbr_hier2_filler_x8/variance": 28,
         "la/rc_complexities/variance": 6,
         "la/rc_vbr_la8_x10/variance": 28,
+        "la/uhd_2160p_10bit_cut/variance": 2,
+        "la/uhd_2160p_8bit_cut/variance": 15,
+        "la/uhd_4320p_8bit_cut/variance": 3,
+        "la/wide_10bit_cut_1088x4224/variance": 1,
+        "la/wide_10bit_cut_4224x1088/variance": 1,
+        "la/wide_10bit_cut_480x720/variance": 1,
+        "la/wide_10bit_cut_64x8192/variance": 1,
+        "la/wide_10bit_pan_1088x4224/variance": 2,
+        "la/wide_10bit_pan_4224x1088/variance": 2,
+        "la/wide_10bit_pan_480x720/variance": 2,
+        "la/wide_10bit_pan_64x8192/variance": 1,
+        "la/wide_8bit_cut_1088x4224/variance": 1,
+        "la/wide_8bit_cut_480x720/variance": 4,
+        "la/wide_8bit_cut_64x8192/variance": 3,
+        "la/wide_8bit_pan_1088x4224/variance": 4,
+        "la/wide_8bit_pan_4224x1088/variance": 1,
+        "la/wide_8bit_pan_480x720/variance": 1,
         "bv16/af_frontend_0": 5,
         "bv16/af_frontend_1": 5,
         "bv16/af_frontend_2": 5,
         "bv16/af_frontend_3": 5,
         "bv16/af_helpers_8bit_128x192_s4": 8,
+        "bv16/af_uhd_nat_10bit_2176x3840": 10,
+        "bv16/af_uhd_nat_8bit_2176x3840": 10,
         "bv16/helpers_10bit_64x128_s16": 7,
         "bv16/helpers_10bit_64x128_s32": 7,
         "bv16/helpers_10bit_64x128_s8": 5,
@@ -593,6 +765,8 @@ SPREAD_ULPS = {
         "bv32/af_frontend_2": 5,
         "bv32/af_frontend_3": 5,
         "bv32/af_helpers_8bit_128x192_s4": 26,
+        "bv32/af_uhd_nat_10bit_2176x3840": 34,
+        "bv32/af_uhd_nat_8bit_2176x3840": 36,
         "bv32/helpers_10bit_64x128_s16": 17,
         "bv32/helpers_10bit_64x128_s32": 13,
         "bv32/helpers_10bit_64x128_s8": 16,
@@ -608,6 +782,8 @@ SPREAD_ULPS = {
         "bv8/af_frontend_2": 2,
         "bv8/af_frontend_3": 2,
         "bv8/af_helpers_8bit_128x192_s4": 2,
+        "bv8/af_uhd_nat_10bit_2176x3840": 3,
+        "bv8/af_uhd_nat_8bit_2176x3840": 2,
         "bv8/helpers_10bit_64x128_s16": 2,
         "bv8/helpers_10bit_64x128_s32": 1,
         "bv8/helpers_10bit_64x128_s8": 2,
@@ -622,6 +798,8 @@ SPREAD_ULPS = {
         "ctb32/af_frontend_1": 2,
         "ctb32/af_frontend_2": 2,
         "ctb32/af_frontend_3": 1,
+        "ctb32/af_uhd_nat_10bit_2176x3840": 4,
+        "ctb32/af_uhd_nat_8bit_2176x3840": 2,
         "ctb32/helpers_10bit_64x128_s16": 1,
         "ctb32/helpers_10bit_64x128_s32": 2,
         "ctb32/helpers_8bit_64x128_s16": 1,
@@ -633,6 +811,8 @@ SPREAD_ULPS = {
         "ctb64/af_frontend_2": 3,
         "ctb64/af_frontend_3": 3,
         "ctb64/af_helpers_8bit_128x192_s4": 7,
+        "ctb64/af_uhd_nat_10bit_2176x3840": 7,
+        "ctb64/af_uhd_nat_8bit_2176x3840": 8,
         "ctb64/helpers_10bit_64x128_s16": 4,
         "ctb64/helpers_10bit_64x128_s32": 6,
         "ctb64/helpers_10bit_64x128_s8": 4,
@@ -648,16 +828,22 @@ SPREAD_ULPS = {
         "af_var16/af_frontend_2": 5,
         "af_var16/af_frontend_3": 5,
         "af_var16/af_helpers_8bit_128x192_s4": 8,
+        "af_var16/af_uhd_nat_10bit_2176x3840": 10,
+        "af_var16/af_uhd_nat_8bit_2176x3840": 10,
         "af_var32/af_frontend_0": 3,
         "af_var32/af_frontend_1": 10,
         "af_var32/af_frontend_2": 5,
         "af_var32/af_frontend_3": 5,
         "af_var32/af_helpers_8bit_128x192_s4": 26,
+        "af_var32/af_uhd_nat_10bit_2176x3840": 34,
+        "af_var32/af_uhd_nat_8bit_2176x3840": 36,
         "af_var8/af_frontend_0": 2,
         "af_var8/af_frontend_1": 2,
         "af_var8/af_frontend_2": 2,
         "af_var8/af_frontend_3": 2,
         "af_var8/af_helpers_8bit_128x192_s4": 2,
+        "af_var8/af_uhd_nat_10bit_2176x3840": 3,
+        "af_var8/af_uhd_nat_8bit_2176x3840": 2,
         "sigma/nat_10bit_sd0.0_1080p_cb": 2,
         "sigma/nat_10bit_sd0.0_1080p_y": 2,
         "sigma/nat_10bit_sd1.5_1080p_cb": 2,
@@ -673,6 +859,10 @@ SPREAD_ULPS = {
         "sigma/nat_8bit_sd4.0_1080p_y": 2,
         "sigma/nat_8bit_sd8.0_1080p_cb": 1,
         "sigma/nat_8bit_sd8.0_1080p_y": 1,
+        "sigma/uhd_nat_sd1.5_10bit_2160p": 3,
+        "sigma/uhd_nat_sd1.5_8bit_2160p": 1,
+        "sigma/uhd_nat_sd4.0_10bit_2160p": 1,
+        "sigma/uhd_nat_sd4.0_8bit_2160p": 2,
         "sse32/e255": 78,
         "sse64/e255": 64,
     },
@@ -686,11 +876,29 @@ SPREAD_ULPS = {
         "la/rc_cbr_hier2_filler_x8/variance": 5,
         "la/rc_complexities/variance": 6,
         "la/rc_vbr_la8_x10/variance": 5,
+        "la/uhd_2160p_10bit_cut/variance": 2,
+        "la/uhd_2160p_8bit_cut/variance": 15,
+        "la/uhd_4320p_8bit_cut/variance": 3,
+        "la/wide_10bit_cut_480x720/variance": 1,
+        "la/wide_10bit_cut_64x8192/variance": 1,
+        "la/wide_10bit_pan_1088x4224/variance": 2,
+        "la/wide_10bit_pan_4224x1088/variance": 2,
+        "la/wide_10bit_pan_480x720/variance": 2,
+        "la/wide_10bit_pan_64x8192/variance": 1,
+        "la/wide_8bit_cut_1088x4224/variance": 2,
+        "la/wide_8bit_cut_480x720/variance": 4,
+        "la/wide_8bit_cut_64x8192/variance": 1,
+        "la/wide_8bit_pan_1088x4224/variance": 2,
+        "la/wide_8bit_pan_4224x1088/variance": 1,
+        "la/wide_8bit_pan_480x720/variance": 1,
+        "la/wide_8bit_pan_64x8192/variance": 1,
         "bv16/af_frontend_0": 5,
         "bv16/af_frontend_1": 5,
         "bv16/af_frontend_2": 5,
         "bv16/af_frontend_3": 5,
         "bv16/af_helpers_8bit_128x192_s4": 8,
+        "bv16/af_uhd_nat_10bit_2176x3840": 10,
+        "bv16/af_uhd_nat_8bit_2176x3840": 10,
         "bv16/helpers_10bit_64x128_s16": 7,
         "bv16/helpers_10bit_64x128_s32": 7,
         "bv16/helpers_10bit_64x128_s8": 5,
@@ -706,6 +914,8 @@ SPREAD_ULPS = {
         "bv32/af_frontend_2": 5,
         "bv32/af_frontend_3": 5,
         "bv32/af_helpers_8bit_128x192_s4": 26,
+        "bv32/af_uhd_nat_10bit_2176x3840": 34,
+        "bv32/af_uhd_nat_8bit_2176x3840": 36,
         "bv32/helpers_10bit_64x128_s16": 17,
         "bv32/helpers_10bit_64x128_s32": 13,
         "bv32/helpers_10bit_64x128_s8": 16,
@@ -721,6 +931,8 @@ SPREAD_ULPS = {
         "bv8/af_frontend_2": 2,
         "bv8/af_frontend_3": 2,
         "bv8/af_helpers_8bit_128x192_s4": 2,
+        "bv8/af_uhd_nat_10bit_2176x3840": 3,
+        "bv8/af_uhd_nat_8bit_2176x3840": 2,
         "bv8/helpers_10bit_64x128_s16": 2,
         "bv8/helpers_10bit_64x128_s32": 1,
         "bv8/helpers_10bit_64x128_s8": 2,
@@ -735,6 +947,8 @@ SPREAD_ULPS = {
         "ctb32/af_frontend_1": 2,
         "ctb32/af_frontend_2": 2,
         "ctb32/af_frontend_3": 1,
+        "ctb32/af_uhd_nat_10bit_2176x3840": 4,
+        "ctb32/af_uhd_nat_8bit_2176x3840": 2,
         "ctb32/helpers_10bit_64x128_s16": 1,
         "ctb32/helpers_10bit_64x128_s32": 2,
         "ctb32/helpers_8bit_64x128_s16": 1,
@@ -746,6 +960,8 @@ SPREAD_ULPS = {
         "ctb64/af_frontend_2": 3,
         "ctb64/af_frontend_3": 3,
         "ctb64/af_helpers_8bit_128x192_s4": 7,
+        "ctb64/af_uhd_nat_10bit_2176x3840": 7,
+        "ctb64/af_uhd_nat_8bit_2176x3840": 8,
         "ctb64/helpers_10bit_64x128_s16": 4,
         "ctb64/helpers_10bit_64x128_s32": 6,
         "ctb64/helpers_10bit_64x128_s8": 4,
@@ -761,16 +977,22 @@ SPREAD_ULPS = {
         "af_var16/af_frontend_2": 5,
         "af_var16/af_frontend_3": 5,
         "af_var16/af_helpers_8bit_128x192_s4": 8,
+        "af_var16/af_uhd_nat_10bit_2176x3840": 10,
+        "af_var16/af_uhd_nat_8bit_2176x3840": 10,
         "af_var32/af_frontend_0": 3,
         "af_var32/af_frontend_1": 10,
         "af_var32/af_frontend_2": 5,
         "af_var32/af_frontend_3": 5,
         "af_var32/af_helpers_8bit_128x192_s4": 26,
+        "af_var32/af_uhd_nat_10bit_2176x3840": 34,
+        "af_var32/af_uhd_nat_8bit_2176x3840": 36,
         "af_var8/af_frontend_0": 2,
         "af_var8/af_frontend_1": 2,
         "af_var8/af_frontend_2": 2,
         "af_var8/af_frontend_3": 2,
         "af_var8/af_helpers_8bit_128x192_s4": 2,
+        "af_var8/af_uhd_nat_10bit_2176x3840": 3,
+        "af_var8/af_uhd_nat_8bit_2176x3840": 2,
         "sigma/nat_10bit_sd0.0_1080p_y": 2,
         "sigma/nat_10bit_sd1.5_1080p_y": 2,
         "sigma/nat_10bit_sd4.0_1080p_y": 1,
@@ -782,6 +1004,10 @@ SPREAD_ULPS = {
         "sigma/nat_8bit_sd4.0_1080p_y": 2,
         "sigma/nat_8bit_sd8.0_1080p_cb": 3,
         "sigma/nat_8bit_sd8.0_1080p_y": 1,
+        "sigma/uhd_nat_sd1.5_10bit_2160p": 3,
+        "sigma/uhd_nat_sd1.5_8bit_2160p": 1,
+        "sigma/uhd_nat_sd4.0_10bit_2160p": 1,
+        "sigma/uhd_nat_sd4.0_8bit_2160p": 2,
         "sse64/e255": 1,
     },
     "sse4_2": {
@@ -794,11 +1020,31 @@ SPREAD_ULPS = {
         "la/rc_cbr_hier2_filler_x8/variance": 4,
         "la/rc_complexities/variance": 6,
         "la/rc_vbr_la8_x10/variance": 4,
+        "la/uhd_2160p_10bit_cut/variance": 2,
+        "la/uhd_2160p_8bit_cut/variance": 15,
+        "la/uhd_4320p_10bit_cut/variance": 1,
+        "la/uhd_4320p_8bit_cut/variance": 3,
+        "la/wide_10bit_cut_1088x4224/variance": 1,
+        "la/wide_10bit_cut_4224x1088/variance": 1,
+        "la/wide_10bit_cut_480x720/variance": 1,
+        "la/wide_10bit_cut_64x8192/variance": 1,
+        "la/wide_10bit_pan_1088x4224/variance": 2,
+        "la/wide_10bit_pan_4224x1088/variance": 1,
+        "la/wide_10bit_pan_480x720/variance": 2,
+        "la/wide_10bit_pan_64x8192/variance": 1,
+        "la/wide_8bit_cut_1088x4224/variance": 2,
+        "la/wide_8bit_cut_480x720/variance": 4,
+        "la/wide_8bit_cut_64x8192/variance": 1,
+        "la/wide_8bit_pan_1088x4224/variance": 2,
+        "la/wide_8bit_pan_480x720/variance": 1,
+        "la/wide_8bit_pan_64x8192/variance": 2,
         "bv16/af_frontend_0": 8,
         "bv16/af_frontend_1": 8,
         "bv16/af_frontend_2": 8,
         "bv16/af_frontend_3": 8,
         "bv16/af_helpers_8bit_128x192_s4": 14,
+        "bv16/af_uhd_nat_10bit_2176x3840": 20,
+        "bv16/af_uhd_nat_8bit_2176x3840": 19,
         "bv16/helpers_10bit_64x128_s16": 12,
         "bv16/helpers_10bit_64x128_s32": 14,
         "bv16/helpers_10bit_64x128_s8": 10,
@@ -814,6 +1060,8 @@ SPREAD_ULPS = {
         "bv32/af_frontend_2": 6,
         "bv32/af_frontend_3": 15,
         "bv32/af_helpers_8bit_128x192_s4": 40,
+        "bv32/af_uhd_nat_10bit_2176x3840": 57,
+        "bv32/af_uhd_nat_8bit_2176x3840": 67,
         "bv32/helpers_10bit_64x128_s16": 14,
         "bv32/helpers_10bit_64x128_s32": 53,
         "bv32/helpers_10bit_64x128_s8": 32,
@@ -829,6 +1077,8 @@ SPREAD_ULPS = {
         "bv8/af_frontend_2": 4,
         "bv8/af_frontend_3": 3,
         "bv8/af_helpers_8bit_128x192_s4": 6,
+        "bv8/af_uhd_nat_10bit_2176x3840": 6,
+        "bv8/af_uhd_nat_8bit_2176x3840": 6,
         "bv8/helpers_10bit_64x128_s16": 4,
         "bv8/helpers_10bit_64x128_s32": 4,
         "bv8/helpers_10bit_64x128_s8": 4,
@@ -844,6 +1094,8 @@ SPREAD_ULPS = {
         "ctb32/af_frontend_2": 1,
         "ctb32/af_frontend_3": 2,
         "ctb32/af_helpers_8bit_128x192_s4": 2,
+        "ctb32/af_uhd_nat_10bit_2176x3840": 5,
+        "ctb32/af_uhd_nat_8bit_2176x3840": 2,
         "ctb32/helpers_10bit_64x128_s16": 1,
         "ctb32/helpers_10bit_64x128_s32": 1,
         "ctb32/helpers_10bit_64x128_s8": 1,
@@ -859,6 +1111,8 @@ SPREAD_ULPS = {
         "ctb64/af_frontend_2": 3,
         "ctb64/af_frontend_3": 3,
         "ctb64/af_helpers_8bit_128x192_s4": 5,
+        "ctb64/af_uhd_nat_10bit_2176x3840": 7,
+        "ctb64/af_uhd_nat_8bit_2176x3840": 7,
         "ctb64/helpers_10bit_64x128_s16": 3,
         "ctb64/helpers_10bit_64x128_s32": 4,
         "ctb64/helpers_10bit_64x128_s8": 3,
@@ -874,16 +1128,22 @@ SPREAD_ULPS = {
         "af_var16/af_frontend_2": 8,
         "af_var16/af_frontend_3": 8,
         "af_var16/af_helpers_8bit_128x192_s4": 14,
+        "af_var16/af_uhd_nat_10bit_2176x3840": 20,
+        "af_var16/af_uhd_nat_8bit_2176x3840": 19,
         "af_var32/af_frontend_0": 12,
         "af_var32/af_frontend_1": 5,
         "af_var32/af_frontend_2": 6,
         "af_var32/af_frontend_3": 15,
         "af_var32/af_helpers_8bit_128x192_s4": 40,
+        "af_var32/af_uhd_nat_10bit_2176x3840": 57,
+        "af_var32/af_uhd_nat_8bit_2176x3840": 67,
         "af_var8/af_frontend_0": 4,
         "af_var8/af_frontend_1": 3,
         "af_var8/af_frontend_2": 4,
         "af_var8/af_frontend_3": 3,
         "af_var8/af_helpers_8bit_128x192_s4": 6,
+        "af_var8/af_uhd_nat_10bit_2176x3840": 6,
+        "af_var8/af_uhd_nat_8bit_2176x3840": 6,
         "sigma/nat_10bit_sd0.0_1080p_y": 2,
         "sigma/nat_10bit_sd1.5_1080p_y": 2,
         "sigma/nat_10bit_sd4.0_1080p_y": 1,
@@ -895,6 +1155,10 @@ SPREAD_ULPS = {
         "sigma/nat_8bit_sd4.0_1080p_y": 2,
         "sigma/nat_8bit_sd8.0_1080p_cb": 3,
         "sigma/nat_8bit_sd8.0_1080p_y": 1,
+        "sigma/uhd_nat_sd1.5_10bit_2160p": 3,
+        "sigma/uhd_nat_sd1.5_8bit_2160p": 1,
+        "sigma/uhd_nat_sd4.0_10bit_2160p": 1,
+        "sigma/uhd_nat_sd4.0_8bit_2160p": 2,
         "sse64/e255": 1,
     },
 }
@@ -999,13 +1263,227 @@ def test_ordered_sum_is_the_left_to_right_float32_chain():
     parts = (rng.integers(0, 1 << 20, (289, 135)) / 16.0).astype(np.float32)
     parts[:, 0] = 2.0 ** 24
     want = np.add.accumulate(parts, axis=1, dtype=np.float32)[:, -1]
-    got = K.ordered_sum(torch.from_numpy(parts)).numpy()
+    chain = K.SumPlan(135, 1, 135, 1)
+    got = K.ordered_sum(torch.from_numpy(parts), chain).numpy()
     np.testing.assert_array_equal(got, want)
     assert not np.array_equal(got, parts.astype(np.float64).sum(1).astype(
         np.float32))
-    assert K.ordered_sum(torch.zeros(4, 0)).tolist() == [0.0] * 4
+    assert K.ordered_sum(torch.zeros(4, 0), K.SumPlan(0, 1, 1, 1)).tolist() \
+        == [0.0] * 4
     with pytest.raises(ValueError):
-        K.ordered_sum(torch.zeros(4, 3, dtype=torch.float64))
+        K.ordered_sum(torch.zeros(4, 3, dtype=torch.float64),
+                      K.SumPlan(3, 1, 3, 1))
+    with pytest.raises(ValueError):
+        K.ordered_sum(torch.zeros(4, 3), K.SumPlan(3, 1, 3, 1, lanes=3))
+
+
+def np_plan_sum(x: np.ndarray, q) -> np.ndarray:
+    """The float32 sum of each (gh, gw) grid of x (N, gh, gw) in the order
+    XLA:CPU reduces it (a SumPlan, as measured: ROADMAP §3), spelled out
+    in numpy: per window, its rows dealt round-robin to the lanes, each
+    lane a left-to-right chain, the lanes halved, the remaining rows and
+    then, with split, the last column chained on; the windows of an
+    output row chained, then the output rows."""
+    f32 = np.float32
+    zero = np.zeros(x.shape[0], f32)
+
+    def chain(acc, cells):
+        for r, c in cells:
+            if 0 <= r < q.gh and 0 <= c < q.gw:
+                acc = (acc + x[:, r, c]).astype(f32)
+        return acc
+
+    total = zero
+    for a in range(q.oh):
+        row = zero
+        for b in range(q.ow):
+            rows = [a * q.wh + i - q.ph for i in range(q.wh)]
+            cols = [b * q.ww + j - q.pw for j in range(q.ww)]
+            body = cols[:len(cols) - q.split]
+            main = q.wh - q.wh % q.lanes
+            lanes = [chain(zero, [(r, c) for r in rows[lane:main:q.lanes]
+                                  for c in body])
+                     for lane in range(q.lanes)]
+            while len(lanes) > 1:
+                h = len(lanes) // 2
+                lanes = [(lanes[i] + lanes[i + h]).astype(f32)
+                         for i in range(h)]
+            w = chain(lanes[0], [(r, c) for r in rows[main:] for c in body])
+            if q.split:
+                w = chain(w, [(r, cols[-1]) for r in rows])
+            row = (row + w).astype(f32)
+        total = (total + row).astype(f32)
+    return total
+
+
+# (grid, the reference compile's plan): the 4320p lookahead's two levels
+# of 2 x 2 windows, 1088x4224's 1 x 2 windows, 4224x1088's 2 x 1, an 8064
+# wide luma's split last column, and single-step grids over 2, 4 and 8
+# lanes with and without remaining rows
+PLANS = {
+    (34, 60): (34, 60, 32, 32, 15, 2, 2, 2, 1, 0),
+    (9, 33): (9, 33, 9, 32, 0, 15, 1, 2, 1, 0),
+    (33, 9): (33, 9, 32, 9, 15, 0, 2, 1, 1, 0),
+    (17, 63): (17, 63, 17, 32, 0, 0, 1, 2, 1, 1),
+    (9, 15): (9, 15, 9, 15, 0, 0, 1, 1, 1, 0),
+    (2, 5): (2, 5, 2, 5, 0, 0, 1, 1, 2, 0),
+    (4, 6): (4, 6, 4, 6, 0, 0, 1, 1, 4, 0),
+    (17, 2): (17, 2, 17, 2, 0, 0, 1, 1, 8, 0),
+    (21, 4): (21, 4, 21, 4, 0, 0, 1, 1, 4, 0),
+    (31, 7): (31, 7, 31, 7, 0, 0, 1, 1, 4, 0),
+}
+
+
+@pytest.mark.parametrize("grid", list(PLANS), ids=lambda g: f"{g[0]}x{g[1]}")
+def test_ordered_sum_follows_xla_reduce_plan(grid):
+    """The reference compile's plan of each grid (ROADMAP §3), and K3's
+    plain version under it equal to the order spelled out in numpy, on
+    sums whose running totals pass 2^24, where every plan but 1080p's
+    one-window row-by-row chain differs from the left-to-right chain."""
+    from svt_hevc_tpu_torch.gpu import analysis as ta
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    q = ta.xla_reduce_plan(*grid)
+    assert tuple(q) == PLANS[grid]
+    rng = np.random.default_rng(grid[0] * 100 + grid[1])
+    x = (rng.integers(1, 1 << 22, (64, *grid))
+         * rng.choice([1, 2, 4, 8, 16], (64, *grid))).astype(np.float32)
+    got = K.ordered_sum(torch.from_numpy(x.reshape(64, -1)), q).numpy()
+    np.testing.assert_array_equal(got, np_plan_sum(x, q))
+    chain = np.add.accumulate(x.reshape(64, -1), axis=1,
+                              dtype=np.float32)[:, -1]
+    is_chain = q.lanes == 1 and q.oh * q.ow == 1 and not q.split
+    assert np.array_equal(got, chain) == is_chain
+    with pytest.raises(ValueError):
+        K.ordered_sum(torch.from_numpy(x.reshape(64, -1)[:, 1:]), q)
+
+
+def test_xla_reduce_plan_covers_every_frame_size():
+    """A plan for every grid of the lookahead's SAD windows up to the
+    largest frame the encoder accepts (8192x4320: 34 x 64), none past it."""
+    from svt_hevc_tpu_torch.gpu import analysis as ta
+    for gh in range(1, 35):
+        for gw in range(1, 65):
+            q = ta.xla_reduce_plan(gh, gw)
+            assert q.oh * q.wh >= gh and q.ow * q.ww >= gw
+    for grid in ((35, 64), (34, 65)):
+        with pytest.raises(ValueError):
+            ta.xla_reduce_plan(*grid)
+
+
+# ------------------------------------------ XLA's reduce order, all grids
+
+# the lookahead grids of window sums (decimated plane / 32, rounded up)
+# at the frame sizes the tests and chip_smoke.py encode: each compile's
+# order is the reference compile's at all but 2160p's
+LA_GRIDS = {"1080p": (9, 15), "2160p": (17, 30), "4320p": (34, 60),
+            "8192x4320": (34, 64), "1088x4224": (9, 33),
+            "4224x1088": (33, 9), "64x8192": (1, 64), "480x720": (4, 6)}
+
+
+def _xla_grid_sum(gh: int, gw: int):
+    """The jitted float32 reduce XLA:CPU applies to a (B, gh, gw) grid of
+    window sums inside lookahead_stats: one step for a grid of at most 32
+    x 32, else the second level of reduce-windows the lookahead's HLO
+    shows (32 on an axis longer than 32, zero padding to a multiple of
+    32, the lower half first) and the reduce of their grid."""
+    import jax
+    from jax import lax
+    if gh <= 32 and gw <= 32:
+        return jax.jit(lambda g: g.sum(axis=(1, 2)))
+
+    def win(n):
+        if n <= 32:
+            return n, (0, 0)
+        p = -n % 32
+        return 32, (p // 2, p - p // 2)
+
+    (wh, ph), (ww, pw) = win(gh), win(gw)
+    return jax.jit(lambda g: lax.reduce_window(
+        g, 0.0, lax.add, (1, wh, ww), (1, wh, ww), ((0, 0), ph, pw)).sum(
+            axis=(1, 2)))
+
+
+def plan_check() -> dict:
+    """Whether the port's plan (xla_reduce_plan, K3's plain version) gives
+    this process's XLA compile's sums bit for bit, for every grid up to
+    PLAN_MAX_GRID, on 48 random grids of float32 window sums whose
+    running totals pass 2^24: {"grids": n, "differ": [[gh, gw], ...],
+    "row_by_row_2x2": whether this compile is the reference's kind}."""
+    from svt_hevc_tpu_torch.gpu import analysis as ta
+    from svt_hevc_tpu_torch.gpu import kernels as K
+    differ, n = [], 0
+    for gh in range(1, ta.PLAN_MAX_GRID[0] + 1):
+        for gw in range(1, ta.PLAN_MAX_GRID[1] + 1):
+            rng = np.random.default_rng(gh * 1000 + gw)
+            x = (rng.integers(1, 1 << 22, (48, gh * gw))
+                 * rng.choice([1, 2, 4, 8, 16], (48, gh * gw))).astype(
+                     np.float32)
+            got = np.asarray(_xla_grid_sum(gh, gw)(x.reshape(48, gh, gw)))
+            port = K.ordered_sum(torch.from_numpy(x),
+                                 ta.xla_reduce_plan(gh, gw)).numpy()
+            n += 1
+            if not np.array_equal(got, port):
+                differ.append([gh, gw])
+    return {"grids": n, "differ": differ,
+            "row_by_row_2x2": xla_sums_2x2_row_by_row()}
+
+
+def reveal_tree(gh: int, gw: int, batch: int = 512):
+    """The add tree of this compile's reduce of a gh x gw grid
+    (_xla_grid_sum), as nested pairs of row-major grid indices: value i
+    is set to 2^40, value j to -2^40 and every other to 1, so the sum
+    counts the ones added after i and j cancel, which gives the size of
+    the smallest subtree holding both (the FPRev method); the subtrees
+    are then split recursively."""
+    import random
+    f = _xla_grid_sum(gh, gw)
+    n = gh * gw
+    big = np.float32(2.0 ** 40)
+
+    def lca_sizes(i, js):
+        out = []
+        for k in range(0, len(js), batch):
+            chunk = js[k:k + batch]
+            g = np.ones((batch, n), np.float32)
+            g[:, i] = big
+            g[np.arange(len(chunk)), chunk] = -big
+            r = np.asarray(f(g.reshape(batch, gh, gw)))[:len(chunk)]
+            out.extend((n - r).astype(np.int64).tolist())
+        return out
+
+    def build(leaves, rng):
+        if len(leaves) == 1:
+            return leaves[0]
+        i = rng.choice(leaves)
+        js = [j for j in leaves if j != i]
+        groups = {}
+        for j, size in zip(js, lca_sizes(i, js)):
+            groups.setdefault(size, []).append(j)
+        tree = i
+        for size in sorted(groups):
+            tree = [tree, build(groups[size], rng)]
+        return tree
+
+    sys.setrecursionlimit(max(sys.getrecursionlimit(), 10 * n + 100))
+    return build(list(range(n)), random.Random(0))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("isa", list(ISAS))
+def test_xla_reduce_plan_under_each_compile(isa):
+    """The port's plan of every grid up to PLAN_MAX_GRID against a fresh
+    compile: the reference compile's order everywhere (on a host whose
+    default compile is the reference's kind); under the AVX2 and SSE4_2
+    compiles the same at every LA_GRIDS size but 2160p's."""
+    r = run_worker(os.path.abspath(__file__), isa, ("--plans",),
+                   UHD_WORKER_TIMEOUT_S)
+    differ = {tuple(g) for g in r["differ"].tolist()} if r[
+        "differ"].size else set()
+    assert int(r["grids"]) == 34 * 64
+    if isa == "default" and bool(r["row_by_row_2x2"]):
+        assert differ == set()
+    if isa != "default":
+        assert {k for k, g in LA_GRIDS.items() if g in differ} == {"2160p"}
 
 
 def main(argv=None) -> int:
@@ -1013,12 +1491,27 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", metavar="OUT_NPZ")
     ap.add_argument("--inputs", help="comma-separated input names")
     ap.add_argument("--table", action="store_true")
+    ap.add_argument("--set", choices=["regular", "uhd", "all"],
+                    default="all", help="the inputs --table measures")
+    ap.add_argument("--plans", action="store_true",
+                    help="with --worker: plan_check() of this compile")
+    ap.add_argument("--reveal", metavar="GHxGW",
+                    help="print this compile's add tree of a grid")
     args = ap.parse_args(argv)
-    if args.worker:
+    if args.worker and args.plans:
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        r = plan_check()
+        np.savez(args.worker, grids=r["grids"],
+                 differ=np.array(r["differ"], np.int64).reshape(-1, 2),
+                 row_by_row_2x2=r["row_by_row_2x2"])
+    elif args.reveal:
+        gh, gw = map(int, args.reveal.split("x"))
+        print(json.dumps(reveal_tree(gh, gw)))
+    elif args.worker:
         _worker(args.worker,
                 set(args.inputs.split(",")) if args.inputs else None)
     elif args.table:
-        _table()
+        _table(args.set)
     return 0
 
 

@@ -32,8 +32,9 @@ from svt_hevc_tpu_torch.decoder.decoder import decode_stream
 from svt_hevc_tpu_torch.gpu.analysis import lookahead_stats as t_la
 from svt_hevc_tpu_torch.io.yuv import Frame
 from tests.test_torch_encoder import one_torch_thread  # noqa: F401
-from tests.test_torch_float32_sites import (assert_host_dependent,
-                                            np_variance, vbr_first_batch)
+from tests.test_torch_float32_sites import (WIDE_LA, assert_host_dependent,
+                                            np_variance, vbr_first_batch,
+                                            wide_la_lumas)
 from tests.test_torch_intra_inter import H, W, intra_frames
 
 
@@ -62,6 +63,23 @@ def test_lookahead_stats_matches_jax(bd, t, h, w):
     assert_host_dependent(f"la/{key}/variance", "rc",
                           got["variance"].numpy(), np_variance(ys)[1:])
     assert got["gm_mv"].shape == (t - 1, 2)
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("h,w", WIDE_LA)
+def test_lookahead_sads_of_wide_and_tall_lumas_match_jax(h, w, bd, cut):
+    """zz_sad and gm_sad where XLA reduces the SADs' grid of window sums in
+    two levels (a luma axis past 4096: 9 x 33, 33 x 9 and 1 x 64 windows)
+    or over row lanes (480x720's 4 x 6), past 2^24 sixteenths: equal to
+    JAX. These grids' order is the same under the default, AVX2 and
+    SSE4_2 compiles (tests/test_torch_float32_sites.py holds each)."""
+    ys = wide_la_lumas(h, w, bd, cut)
+    want = j_la(jnp.asarray(ys))
+    got = t_la(torch.from_numpy(ys))
+    for k in ("zz_sad", "gm_sad", "gm_mv", "hist"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
 
 
 def _idr_complexity(var) -> float:
