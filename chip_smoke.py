@@ -78,7 +78,8 @@ library is installed, and must give the recon:
                (adaptive QP with the content classes), on the card:
                seconds and bytes per picture, K1 launches per picture
                (the motion seed, > 0 in each P picture), the QP maps, the
-               synchronized stage split (dev_me_field, ois_maps, qp_map,
+               stage split (device seconds from the port's tracer:
+               dev_me_field, ois_maps, qp_map,
                pass 1, DLF + SAO, pass 2, CABAC), decode == recon, the
                stream == JAX_1080P["host_1080p"]; the
                device times of ois_packed, ctb_activity and denoise_plane
@@ -1453,37 +1454,6 @@ def phase_ra(results: dict):
 
 
 
-class _FixupTimer:
-    """gpu.encode.STAGE_TIMER of the command-line probe: the wall seconds
-    the host waits in the intra fixup's any_intra read (no synchronize
-    around it: the wait is the device work still queued) and the
-    seconds of the fixup's wavefront (synchronized before and after);
-    every other stage runs as without the hook."""
-
-    def __init__(self):
-        self.wait = 0.0
-        self.wavefront = 0.0
-
-    def stage(self, name: str):
-        import contextlib
-
-        import torch
-        kind = name.split(".", 1)[1]
-
-        @contextlib.contextmanager
-        def timed():
-            if kind == "intra_wavefront_pass":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            yield
-            if kind == "intra_wavefront_pass":
-                torch.cuda.synchronize()
-                self.wavefront += time.perf_counter() - t0
-            elif kind == "any_intra":
-                self.wait += time.perf_counter() - t0
-        return timed()
-
-
 def _counts():
     from svt_hevc_tpu_torch.gpu import intra_pass
     from svt_hevc_tpu_torch.gpu import kernels as K
@@ -1496,37 +1466,48 @@ def cli_probe(out_path: str, tokens) -> int:
     runs) with a probe around Encoder.encode_pictures: per access unit
     in decode order, the seconds since the previous one (the first: since
     the call, so it holds the first lookahead batch), the kernel launches
-    and the intra wavefront runs and steps in between, and the intra
-    fixup's seconds (_FixupTimer); and the card's peak allocated bytes.
-    VBR pictures are not pipelined, so each span is that picture's.
-    Counts start at 0 when the encode starts."""
+    and the intra wavefront runs and steps in between, and from the
+    port's tracer the picture's host seconds in the intra fixup's
+    any_intra read (the wait for its queued device work) and the device
+    seconds of its intra wavefront (between the stage's two CUDA events);
+    and the card's peak allocated bytes. VBR pictures are not pipelined,
+    so each span is that picture's. Counts start at 0 when the encode
+    starts."""
     import torch
-    from svt_hevc_tpu_torch import app
-    from svt_hevc_tpu_torch.gpu import encode as genc
+    from svt_hevc_tpu_torch import app, trace
     from svt_hevc_tpu_torch.gpu import intra_pass
     from svt_hevc_tpu_torch.gpu import kernels as K
     from svt_hevc_tpu_torch.pipeline.encoder import Encoder
 
     rows = []
     encode_pictures = Encoder.encode_pictures
-    timer = genc.STAGE_TIMER = _FixupTimer()
 
     def probed(self, frames, **kw):
         torch.cuda.synchronize()
         K.reset_launches()
         intra_pass.WAVEFRONT.update(runs=0, steps=0)
-        t_prev, c_prev = time.perf_counter(), _counts()
-        f_prev = (timer.wait, timer.wavefront)
-        for au in encode_pictures(self, frames, **kw):
-            t_now, c_now = time.perf_counter(), _counts()
-            rows.append({"poc": au.poc, "slice_type": au.slice_type,
-                         "seconds": t_now - t_prev,
-                         "counts": [b - a for a, b in zip(c_prev, c_now)],
-                         "any_intra_wait": timer.wait - f_prev[0],
-                         "wavefront_s": timer.wavefront - f_prev[1]})
-            t_prev, c_prev = t_now, c_now
-            f_prev = (timer.wait, timer.wavefront)
-            yield au
+        tr = trace.Tracer("cuda").start()
+        try:
+            t_prev, c_prev = time.perf_counter(), _counts()
+            for au in encode_pictures(self, frames, **kw):
+                t_now, c_now = time.perf_counter(), _counts()
+                rows.append({"poc": au.poc, "slice_type": au.slice_type,
+                             "idx": au.display_idx,
+                             "seconds": t_now - t_prev,
+                             "counts": [b - a for a, b in zip(c_prev, c_now)]})
+                t_prev, c_prev = t_now, c_now
+                yield au
+        finally:
+            spans = tr.stop()["spans"]
+        for row in rows:
+            mine = [sp for sp in spans if sp["pic"] == row["idx"]]
+            row["any_intra_wait"] = sum(
+                (sp["host_ns"][1] - sp["host_ns"][0]) / 1e9 for sp in mine
+                if sp["name"].endswith(".any_intra"))
+            row["wavefront_s"] = sum(
+                (sp["device_ns"][1] - sp["device_ns"][0]) / 1e9
+                for sp in mine
+                if sp["name"].endswith(".intra_wavefront_pass"))
 
     Encoder.encode_pictures = probed
     torch.cuda.reset_peak_memory_stats()
@@ -1796,28 +1777,6 @@ def phase_stream_variants(cards, cpus):
         f"{'; '.join(parts)} ({time.perf_counter() - t0:.3f} s)")
 
 
-class _StageSplit:
-    """gpu.encode.STAGE_TIMER of phase host_1080p: the synchronized wall
-    seconds of every named stage, summed per picture kind and stage."""
-
-    def __init__(self):
-        self.s: dict = {}
-
-    def stage(self, name: str):
-        import contextlib
-
-        import torch
-
-        @contextlib.contextmanager
-        def timed():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            yield
-            torch.cuda.synchronize()
-            self.s.setdefault(name, []).append(time.perf_counter() - t0)
-        return timed()
-
-
 class _HostCapture:
     """For one encode, wraps the host path's device helpers
     (pipeline.encoder.dev_me_field, Encoder._ois_maps,
@@ -1914,9 +1873,8 @@ def phase_host_1080p(results: dict):
     times. Returns (the CPU job of the helpers' comparison, what the
     card computed for it)."""
     import torch
-    from svt_hevc_tpu_torch import Encoder
+    from svt_hevc_tpu_torch import Encoder, trace
     from svt_hevc_tpu_torch.gpu import analysis as ga
-    from svt_hevc_tpu_torch.gpu import encode as genc
     from svt_hevc_tpu_torch.gpu import kernels as K
     from svt_hevc_tpu_torch.pipeline.encoder import pad_plane
 
@@ -1925,10 +1883,10 @@ def phase_host_1080p(results: dict):
     frames = make_frames(n, 1920, 1080, seed=7)
     enc = Encoder(_cfg(1920, 1080, **HOST_KW))
     names = [k.name for k in _picture_kernels(K)]
-    split = genc.STAGE_TIMER = _StageSplit()
     torch.cuda.synchronize()
     K.reset_launches()
     rows, aus = [], []
+    tr = trace.Tracer("cuda").start()
     try:
         with _HostCapture() as cap:
             t_prev = time.perf_counter()
@@ -1940,7 +1898,13 @@ def phase_host_1080p(results: dict):
                 aus.append(au)
                 t_prev, c_prev = t_now, c_now
     finally:
-        genc.STAGE_TIMER = None
+        spans = tr.stop()["spans"]
+    # every named stage's device seconds (between its two CUDA events)
+    split: dict = {}
+    for sp in spans:
+        if sp["name"].split(".")[0] in ("i", "p"):
+            a, b = sp["device_ns"]
+            split.setdefault(sp["name"], []).append((b - a) / 1e9)
     check([a.slice_type for a in aus] == [2] + [1] * (n - 1),
           "host_1080p: not one IDR and P pictures")
     k1 = names.index("sad_field")
@@ -1967,12 +1931,11 @@ def phase_host_1080p(results: dict):
     for _, qmap in cap.qpm:
         log(f"  QP map {qmap.shape[0]}x{qmap.shape[1]}: QP {qmap.min()}.."
             f"{qmap.max()}, {len(np.unique(qmap))} values")
-    log("  stage split (synchronized s, per picture): " + "; ".join(
+    log("  stage split (device s, per picture): " + "; ".join(
         f"{k} {', '.join(f'{t:.3f}' for t in v)}"
-        for k, v in split.s.items()))
+        for k, v in split.items()))
     results["host_1080p"] = {
-        "seconds": [dt for _, dt, _ in rows],
-        "stages": {k: v for k, v in split.s.items()}}
+        "seconds": [dt for _, dt, _ in rows], "stages": split}
 
     # the helpers' times at 1080p: CUDA events around one call, median of
     # 10 (host enqueue included: each helper is a chain of eager ops)

@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.inter import CHROMA_FILTERS, LUMA_FILTERS
 from ..core.quant import INV_QUANT_SCALES, QUANT_SCALES
 from ..core.transforms import DCT
@@ -105,16 +106,26 @@ _LAM_SSE_P = np.array([
     694.9007, 875.52, 1103.0862, 1389.8014, 1751.04, 2206.1724, 2779.6042,
     3502.08, 4412.3423, 5559.206, 7004.1636], np.float32)
 
-# Per-stage timing hook of the picture pipelines, None by default.
-# tools/torch_stage_times.py sets it to an object whose stage(name) is a
-# context manager; while it is None a stage costs one test.
+# Per-stage hook of the picture pipelines, None by default: an object
+# whose stage(name) is a context manager, entered around every stage
+# outside the tracer's span (the benchmark's two stage timers set it).
 STAGE_TIMER = None
 
 
-def stage(name: str):
-    """Context of one named stage ("p.dense_md_p", "i.download", ...)."""
+def stage(name: str, wait: bool = False):
+    """Context of one named stage ("p.dense_md_p", "i.download", ...): a
+    span of the running trace.Tracer, inside STAGE_TIMER's stage where the
+    hook is set. wait: the host blocks on the device inside it."""
     t = STAGE_TIMER
-    return contextlib.nullcontext() if t is None else t.stage(name)
+    if t is None:
+        return trace.span(name, wait)
+    return _hooked(t, name, wait)
+
+
+@contextlib.contextmanager
+def _hooked(timer, name: str, wait: bool):
+    with timer.stage(name), trace.span(name, wait):
+        yield
 
 
 def _f32(x) -> float:
@@ -1997,7 +2008,7 @@ def _intra_fixup(src3, rec3, lv3, cu_log2_8, inter8, mode8, qp: int,
     dev = cu_log2_8.device
     inpic = ((torch.arange(nbx, device=dev) * 8 < w)[None, :]
              & (torch.arange(nby, device=dev) * 8 < h)[:, None])
-    with stage(f"{kind}.any_intra"):
+    with stage(f"{kind}.any_intra", wait=True):
         any_intra = bool((~inter8 & inpic).any())
     if not any_intra:
         return rec3, lv3, mode8

@@ -49,6 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..bitstream import sei
 from ..bitstream.cabac import CabacEncoder
 from ..bitstream.contexts import init_contexts
@@ -90,6 +91,23 @@ def _apply_segment_ov(base: np.ndarray, sov: np.ndarray,
     out = np.where(delta, out + np.clip(qp_ov, -25, 25), out)
     out = np.where(dbl, out + np.clip(db_ov, -25, 25), out)
     return np.clip(out, lo, hi)
+
+
+_END = object()
+
+
+def _pull(it):
+    """next(it) under the span enc.pull (the wait for the caller's next
+    frame); _END once it is exhausted."""
+    with trace.span("enc.pull"):
+        return next(it, _END)
+
+
+def _pulled(frames):
+    """The caller's frames, each pulled under enc.pull."""
+    it = iter(frames)
+    while (fr := _pull(it)) is not _END:
+        yield fr
 
 
 def pad_plane(plane: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -850,8 +868,13 @@ class Encoder:
                 cb=st.planes[1][:hc, :wc].astype(dt),
                 cr=st.planes[2][:hc, :wc].astype(dt))
         ref_planes = self._ref_planes
+        pic_id = trace.current_picture()
 
         def _complete() -> EncodedPicture:
+            with trace.picture(pic_id), trace.span("pic.complete"):
+                return _assemble()
+
+        def _assemble() -> EncodedPicture:
             substr = substreams
             if substr is None:
                 # a fused picture: fetch the packed device buffer, walk,
@@ -1060,14 +1083,14 @@ class Encoder:
             self._ref_motion.clear()
         self._resuming = False
         if self.cfg.pred_structure == 2:
-            yield from self._ra_pictures(list(frames), rd=rd)
+            yield from self._ra_pictures(list(_pulled(frames)), rd=rd)
             return
         rc = RateControl(self.cfg)
         self.last_rc = rc
         la = (self.cfg.lookahead
               if rc.mode == 1 and rc.target_bits and frame_qps is None else 0)
         stream = (self._la_frames(frames, la) if la > 0
-                  else ((fr, None) for fr in frames))
+                  else ((fr, None) for fr in _pulled(frames)))
         prev_y = self._ckpt_prev_y
         b_slices = self.cfg.pred_structure == 1     # low-delay B
         # hierarchical low-delay: layer-L pictures reference the most
@@ -1098,7 +1121,13 @@ class Encoder:
         pending = None
 
         def _emit(res, meta):
-            pic = res.finish() if isinstance(res, PendingPicture) else res
+            with trace.picture(meta[0]):
+                pic = (res.finish() if isinstance(res, PendingPicture)
+                       else res)
+                with trace.span("enc.emit"):
+                    return _emit_au(pic, meta)
+
+        def _emit_au(pic, meta):
             m_idx, m_idr, m_stype, m_qp, m_window, m_t0, m_layer = meta
             if self._speed_target_fps is not None:
                 fps = 1.0 / max(time.perf_counter() - m_t0, 1e-9)
@@ -1132,15 +1161,18 @@ class Encoder:
             if not leaf_q:
                 return
             from ..parallel import pictures
-            pre = pictures.dispatch_leaf_batch(
-                self, derive_preset(self.cfg.enc_mode),
-                [e["item"] for e in leaf_q])
+            with trace.span("pic.dispatch"):    # the lanes' batch
+                pre = pictures.dispatch_leaf_batch(
+                    self, derive_preset(self.cfg.enc_mode),
+                    [e["item"] for e in leaf_q])
             for e, p in zip(leaf_q, pre):
                 it = e["item"]
-                r = self.encode_frame(
-                    it["frame"], rd=rd, is_idr=False, poc=it["poc"],
-                    qp=it["qp"], slice_type=1, refs_l0=[it["ref"]],
-                    non_ref=True, retain_pocs=e["retain"], precomputed=p)
+                with trace.picture(e["meta"][0]), trace.span("pic.dispatch"):
+                    r = self.encode_frame(
+                        it["frame"], rd=rd, is_idr=False, poc=it["poc"],
+                        qp=it["qp"], slice_type=1, refs_l0=[it["ref"]],
+                        non_ref=True, retain_pocs=e["retain"],
+                        precomputed=p)
                 e["slot"][0] = _emit(r, e["meta"])
             leaf_q.clear()
 
@@ -1148,11 +1180,13 @@ class Encoder:
             idx = self._frame_idx
             self._frame_idx += 1
             is_idr = self._frame_is_idr(idx)
-            if (not is_idr and self.cfg.scene_change_detection
-                    and prev_y is not None
-                    and self._scene_cut(prev_y, np.asarray(fr.y))):
-                is_idr = True
-            prev_y = np.asarray(fr.y)
+            with trace.picture(idx), trace.span("enc.scene_cut"):
+                cur_y = np.asarray(fr.y)
+                if (not is_idr and self.cfg.scene_change_detection
+                        and prev_y is not None
+                        and self._scene_cut(prev_y, cur_y)):
+                    is_idr = True
+            prev_y = cur_y
             if is_idr:
                 self._ref_planes = None
                 self._poc_base = idx
@@ -1208,10 +1242,11 @@ class Encoder:
             # next picture
             can_pipe = (rc.mode == 0 and self._speed_target_fps is None
                         and not mesh_ndev)
-            res = self.encode_frame(fr, rd=rd, is_idr=is_idr, poc=rel,
-                                    qp=qp, slice_type=stype,
-                                    refs_l0=refs_l0, non_ref=non_ref,
-                                    retain_pocs=retain, pipelined=can_pipe)
+            with trace.picture(idx), trace.span("pic.dispatch"):
+                res = self.encode_frame(
+                    fr, rd=rd, is_idr=is_idr, poc=rel, qp=qp,
+                    slice_type=stype, refs_l0=refs_l0, non_ref=non_ref,
+                    retain_pocs=retain, pipelined=can_pipe)
             if hl > 0 and (layer < hl or is_idr):
                 ll_last[0 if is_idr else layer] = (idx, res.ref_planes, rel)
             if mesh_ndev:
@@ -1250,17 +1285,21 @@ class Encoder:
         predecessor is the complexity; the stream's very first picture
         (no predecessor) takes a variance-derived intra proxy."""
         from ..gpu.analysis import lookahead_stats
-        h, w = lumas[0].shape
-        h4, w4 = (h + 3) // 4 * 4, (w + 3) // 4 * 4
-        first = prev_y if prev_y is not None else lumas[0]
-        stack = np.stack([pad_plane(p.astype(np.int32), w4, h4)
-                          for p in [first] + lumas])
-        st = lookahead_stats(torch.from_numpy(stack).to(self.device))
-        zz = st["gm_sad"].cpu().numpy().astype(np.float64)
-        if prev_y is None:
-            var = float(st["variance"][0].cpu())
-            zz[0] = max(float(np.sqrt(var)) / 4.0, 1e-3)
-        return [max(float(c), 1e-3) for c in zz]
+        trace.count("la.frames", len(lumas))
+        with trace.span("la.complexities"):
+            h, w = lumas[0].shape
+            h4, w4 = (h + 3) // 4 * 4, (w + 3) // 4 * 4
+            first = prev_y if prev_y is not None else lumas[0]
+            stack = np.stack([pad_plane(p.astype(np.int32), w4, h4)
+                              for p in [first] + lumas])
+            st = lookahead_stats(torch.from_numpy(stack).to(self.device))
+            with trace.span("wait.lookahead", wait=True):
+                zz = st["gm_sad"].cpu().numpy().astype(np.float64)
+                var = (float(st["variance"][0].cpu()) if prev_y is None
+                       else None)
+            if var is not None:
+                zz[0] = max(float(np.sqrt(var)) / 4.0, 1e-3)
+            return [max(float(c), 1e-3) for c in zz]
 
     def _la_frames(self, frames, la: int):
         """Sliding lookahead queue: yields (frame, window) where window =
@@ -1274,11 +1313,11 @@ class Encoder:
             if not done and len(buf) < la + 1:
                 batch = []
                 while len(batch) < 2 * (la + 1) - len(buf):
-                    try:
-                        batch.append(next(it))
-                    except StopIteration:
+                    fr = _pull(it)
+                    if fr is _END:
                         done = True
                         break
+                    batch.append(fr)
                 if batch:
                     ys = [np.asarray(f.y) for f in batch]
                     cxs = self._la_complexities(ys, prev_y)
@@ -1317,7 +1356,7 @@ class Encoder:
         dec_base = 0
         for seg_start in range(0, len(frames), max(seg_len, 1)):
             seg = frames[seg_start:seg_start + seg_len]
-            for au in self._ra_segment(seg, rd=rd):
+            for au in self._ra_segment(seg, rd=rd, first=seg_start):
                 yield EncodedAu(
                     data=au.data, recon=au.recon, poc=au.poc,
                     slice_type=au.slice_type, is_idr=au.is_idr,
@@ -1337,11 +1376,12 @@ class Encoder:
             acc |= {r for r in (l0, l1) if r is not None}
         return out
 
-    def _ra_segment(self, frames, *, rd=None):
+    def _ra_segment(self, frames, *, rd=None, first: int = 0):
         """Hierarchical-B mini-GOPs: anchors form a P chain, interior
         pictures are bi-predicted from the two enclosing pictures,
         recursively. AUs are yielded in decode order as each is encoded;
-        display_idx gives the presentation order."""
+        display_idx gives the presentation order (first: the segment's
+        first display index in the stream, for the tracer)."""
         cfg = self.cfg
         gop = 1 << max(cfg.hierarchical_levels, 1)
         n = len(frames)
@@ -1375,10 +1415,11 @@ class Encoder:
             refs_l1 = [(dpb[l1], l1)] if l1 is not None else None
             retain = {r for r in future_refs[dec_idx]
                       if r != idx and r in dpb}
-            pic = self.encode_frame(frames[idx], rd=rd, qp=qp, poc=idx,
-                                    is_idr=stype == 2, slice_type=stype,
-                                    refs_l0=refs_l0, refs_l1=refs_l1,
-                                    retain_pocs=retain)
+            with trace.picture(first + idx), trace.span("pic.dispatch"):
+                pic = self.encode_frame(
+                    frames[idx], rd=rd, qp=qp, poc=idx, is_idr=stype == 2,
+                    slice_type=stype, refs_l0=refs_l0, refs_l1=refs_l1,
+                    retain_pocs=retain)
             dpb[idx] = pic.ref_planes
             data = pic.nal_bytes
             if cfg.enable_hrd:
@@ -1447,11 +1488,11 @@ class Encoder:
             elif rasl:
                 nal = (NalUnitType.RASL_N if non_ref
                        else NalUnitType.RASL_R)
-            pic = self.encode_frame(frames[idx], rd=rd, qp=qp, poc=idx,
-                                    is_idr=is_idr, slice_type=stype,
-                                    refs_l0=refs_l0, refs_l1=refs_l1,
-                                    retain_pocs=retain,
-                                    nal_type_override=nal)
+            with trace.picture(idx), trace.span("pic.dispatch"):
+                pic = self.encode_frame(
+                    frames[idx], rd=rd, qp=qp, poc=idx, is_idr=is_idr,
+                    slice_type=stype, refs_l0=refs_l0, refs_l1=refs_l1,
+                    retain_pocs=retain, nal_type_override=nal)
             dpb[idx] = pic.ref_planes
             data = pic.nal_bytes
             if cfg.enable_hrd:

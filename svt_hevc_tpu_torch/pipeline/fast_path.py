@@ -396,13 +396,16 @@ def complete_fast(cfg, st, packed, b_form: bool = False, lv_dev=None):
     the caller can dispatch the NEXT frame's work before this download +
     walk (frames-in-flight). lv_dev: the device-resident full coefficient
     planes, downloaded only when the sparse download overflowed."""
+    from .. import trace
     from ..gpu import encode as genc
     cw, ch = st.w, st.h
     w64 = (cw + 63) // 64 * 64
     h64 = (ch + 63) // 64 * 64
     specs = (genc.fused_b_dev_specs if b_form
              else genc.fused_dev_specs)(h64, w64, cfg.ctb_size)
-    out = genc.unpack(packed.cpu().numpy(), specs)
+    with trace.span("wait.download", wait=True):
+        host = packed.cpu()
+    out = genc.unpack(host.numpy(), specs)
     return _build_maps(st, out, lv_dev)
 
 

@@ -11,25 +11,28 @@ plus 2-bit noise; IPPP, or with --structure ra random access with
 hierarchical B, hl=2; --tiles C,R: C x R tiles; --sharp: adaptive QP
 for sharpness) twice through Encoder.encode_pictures:
 
-  1. with the stage hook of gpu.encode (STAGE_TIMER) set: every stage of
-     the picture pipelines runs between two torch.cuda.synchronize()
-     calls, so each stage's wall time includes its device work; "p.*" P,
-     "b.*" B and "i.*" I pictures. The fused device paths: upload,
-     hme_search, the fused device stages, download, host emitter. The
-     host path (tiles, --sharp, the RD presets M0-M5): upload (where the
-     picture has a device context, else none), hme_search or
-     dev_me_field (the motion seed), ois_maps, qp_map, pass1 (decide
-     and reconstruct), dlf_sao, pass2 (record the syntax), cabac, and
-     dpb_upload (the recon into the device DPB);
-  2. without the hook, on a fresh encoder, with torch.profiler tracing the
-     steady state. IPPP: the dispatches of pictures 2..N-1 and the host
-     walks of pictures 1..N-2, as the encoder pipelines them (host-path
-     pictures one at a time: pictures 2..N-1). RA: every picture after
-     the IDR, one at a time (random access is not pipelined). It reports
-     the wall time per picture, the device busy time (sum of device
-     event times) and the device's idle share.
+  1. with the port's tracer (svt_hevc_tpu_torch.trace) on, nothing
+     synchronised: for every named stage, "p.*" P, "b.*" B and "i.*" I
+     pictures, the median host milliseconds (the host's time in it) and
+     device milliseconds (between its two CUDA events: where the device
+     started and finished its queued work), and for each kernel its
+     launches per picture (the tracer's counter deltas). The fused device
+     paths: upload, hme_search, the fused device stages, download (with
+     its wait), host emitter. The host path (tiles, --sharp, the RD
+     presets M0-M5): upload (where the picture has a device context, else
+     none), hme_search or dev_me_field (the motion seed), ois_maps,
+     qp_map, pass1 (decide and reconstruct), dlf_sao, pass2 (record the
+     syntax), cabac, and dpb_upload (the recon into the device DPB).
+     torch.profiler traces its steady state: IPPP, the dispatches of
+     pictures 2..N-1 and the host walks of pictures 1..N-2, as the
+     encoder pipelines them (host-path pictures one at a time: pictures
+     2..N-1); RA, every picture after the IDR, one at a time (random
+     access is not pipelined). It reports the wall time per picture, the
+     device busy time (the union of the device's activity intervals:
+     overlapping kernels count once) and the device's idle share;
+  2. with the tracer off, for the stream to compare.
 
-The two streams must be byte-identical (the hook only times). Fails if
+The two streams must be byte-identical (the tracer only records). Fails if
 the native host emitter did not build. Prints one JSON line.
 
 --packed: instead, the stage-by-stage P pipeline of the packed graphs
@@ -45,7 +48,6 @@ CTB 32, with empty intra maps), encode_pass_p_packed and its download.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -53,27 +55,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-
-
-class StageTimer:
-    """gpu.encode.STAGE_TIMER: synchronized wall time and kernel launches
-    of every named stage, in call order."""
-
-    def __init__(self, kernels):
-        self.kernels = kernels
-        self.rows: list[tuple[str, float, list[int]]] = []
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        import torch
-        torch.cuda.synchronize()
-        c0 = [k.launches for k in self.kernels]
-        t0 = time.perf_counter()
-        yield
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        self.rows.append((name, dt, [k.launches - c for k, c in
-                                     zip(self.kernels, c0)]))
+sys.path.insert(1, os.path.join(ROOT, "benchmark"))    # its arithmetic
 
 
 def packed_split(w=1920, h=1080, device="cuda") -> dict:
@@ -167,7 +149,6 @@ def main() -> int:
         return 1
     from chip_smoke import make_frames
     from svt_hevc_tpu_torch import Encoder, EncoderConfig
-    from svt_hevc_tpu_torch.gpu import encode as genc
     from svt_hevc_tpu_torch.gpu import kernels as K
     from svt_hevc_tpu_torch.pipeline.native_emit import native_emit_available
     from torch_compare_reference import card_line
@@ -193,22 +174,12 @@ def main() -> int:
                         intra_period=-1, tile_columns=cols, tile_rows=rows,
                         improve_sharpness=args.sharp, **extra)
 
-    # ---- 1. every stage synchronized
-    timer = StageTimer(K.KERNELS)
-    genc.STAGE_TIMER = timer
-    try:
-        staged = [au.data for au in Encoder(cfg).encode_pictures(frames)]
-    finally:
-        genc.STAGE_TIMER = None
-    stages: dict = {}
-    for name, dt, launches in timer.rows:
-        ent = stages.setdefault(name, {"s": [], "launches": []})
-        ent["s"].append(dt)
-        ent["launches"].append(launches)
-
-    # ---- 2. the steady state under the profiler
+    # ---- 1. the tracer on, the profiler over the steady state
+    from svt_hevc_tpu_torch import trace
     from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    from harness import _gpu_events
+    from yardstick import union_ns
+    prof = profile(activities=[ProfilerActivity.CUDA])
     window: dict = {}
 
     def feed():
@@ -223,46 +194,59 @@ def main() -> int:
         window["wall"] = time.perf_counter() - window["t0"]
         prof.stop()
 
-    if ra:
-        gen = Encoder(cfg).encode_pictures(frames)
-        plain = [next(gen).data]                  # the IDR
-        torch.cuda.synchronize()
-        prof.start()
-        window["t0"] = time.perf_counter()
-        plain += [au.data for au in gen]
-        torch.cuda.synchronize()
-        window["wall"] = time.perf_counter() - window["t0"]
-        prof.stop()
-        pics = n - 1
-    else:
-        plain = [au.data for au in Encoder(cfg).encode_pictures(feed())]
-        pics = n - 2
-    dev_us = 0.0
-    n_events = 0
-    for ev in prof.events():
-        if "CUDA" in str(ev.device_type):
-            dev_us += ev.time_range.elapsed_us()
-            n_events += 1
+    tr = trace.Tracer("cuda").start()
+    try:
+        if ra:
+            gen = Encoder(cfg).encode_pictures(frames)
+            traced = [next(gen).data]                  # the IDR
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+            traced += [au.data for au in gen]
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - window["t0"]
+            prof.stop()
+            pics = n - 1
+        else:
+            traced = [au.data for au in Encoder(cfg).encode_pictures(feed())]
+            pics = n - 2
+    finally:
+        out = tr.stop()
+    stages: dict = {}
+    for sp in out["spans"]:
+        if sp["name"].split(".")[0] in ("i", "p", "b"):
+            ent = stages.setdefault(sp["name"], {"host": [], "device": []})
+            for clock, key in (("host_ns", "host"), ("device_ns", "device")):
+                a, b = sp[clock]
+                ent[key].append((b - a) / 1e6)
+
+    # ---- 2. the tracer off
+    plain = [au.data for au in Encoder(cfg).encode_pictures(frames)]
+    events = [(a, b) for _, a, b in _gpu_events(prof, "cuda")]
+    busy = (union_ns(events, min(s for s, _ in events),
+                     max(e for _, e in events)) / 1e9 if events else 0.0)
     wall = window["wall"]
     res = {
         "card": card_line("cuda"), "frames": n, "structure": args.structure,
         "enc_mode": args.enc_mode, "bit_depth": args.bit_depth,
         "tiles": [cols, rows], "sharp": args.sharp,
-        "streams_equal": staged == plain,
-        "kernels": [k.name for k in K.KERNELS],
-        "stages": {k: {"median_s": float(np.median(v["s"])),
-                       "calls": len(v["s"]),
-                       "launches_per_call": [
-                           float(np.median(c)) for c in zip(*v["launches"])]}
+        "streams_equal": traced == plain,
+        "stages": {k: {"calls": len(v["host"]),
+                       "median_host_ms": float(np.median(v["host"])),
+                       "median_device_ms": float(np.median(v["device"]))}
                    for k, v in stages.items()},
+        "launches_per_picture": {k: v / n for k, v in
+                                 out["deltas"]["launches"].items()},
+        "wavefront_steps_per_picture":
+            out["deltas"]["wavefront"]["steps"] / n,
         ("after_idr_profiled" if ra else "steady_p_profiled"): {
             "pictures": pics, "wall_s_per_picture": wall / pics,
-            "device_busy_s_per_picture": dev_us / 1e6 / pics,
-            "device_idle_share": 1.0 - dev_us / 1e6 / wall,
-            "device_events_per_picture": n_events / pics},
+            "device_busy_s_per_picture": busy / pics,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_events_per_picture": len(events) / pics},
     }
     print(json.dumps(res), flush=True)
-    return 0 if staged == plain else 1
+    return 0 if traced == plain else 1
 
 
 if __name__ == "__main__":
