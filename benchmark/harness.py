@@ -19,7 +19,8 @@ card by a copy on a side stream into pinned host memory, ordered after
 the encoder's queued work by an event, so that the host never waits for
 it; its TMVP motion field is taken from the encoder's host-side record.
 Where the window ends before the cell's quality range (cells/<cell>.json)
-is whole, the encoder is pulled on, untimed, until it is.
+is whole, the encoder is pulled on, untimed, until every display index up
+to the range's last has been yielded (pull_on).
 
 With trace, the window has two parts. The first, of PROFILE_SECONDS,
 runs under torch.profiler (CUDA activity only), with each K1 / K2
@@ -105,7 +106,11 @@ def expectations(cfg) -> dict:
         "ctb_size": cfg.ctb_size, "sao": cfg.enable_sao, "tmvp": cfg.tmvp,
         "deblocking": cfg.enable_deblocking,
         "tiles": [cfg.tile_columns, cfg.tile_rows],
-        "inter_slice_type": 1 if cfg.pred_structure == 0 else 0,
+        "pred_structure": cfg.pred_structure,
+        "hierarchical_levels": cfg.hierarchical_levels,
+        "intra_period": cfg.intra_period,
+        "open_gop": (cfg.pred_structure == 2 and cfg.intra_period > 0
+                     and cfg.intra_refresh_type == 1),
         "qp": cfg.qp if cfg.rate_control_mode == 0 else None,
         "qp_range": [cfg.min_qp_allowed, cfg.max_qp_allowed],
         "rc": (None if cfg.rate_control_mode == 0 or not cfg.target_bitrate
@@ -242,6 +247,17 @@ class Readback:
 
     def finish(self) -> None:
         self.stream.synchronize()
+
+
+def pull_on(pictures: list[dict], more, last: int) -> None:
+    """Call more() (which appends one access unit to pictures) until every
+    display index from 0 to last has been yielded. In decode order an
+    anchor comes before the B pictures that display before it, so one
+    index at or past last is not enough."""
+    missing = set(range(last + 1)) - {p["idx"] for p in pictures}
+    while missing:
+        more()
+        missing.discard(pictures[-1]["idx"])
 
 
 def _gpu_events(prof, device: str) -> list[tuple[str, int, int]]:
@@ -385,9 +401,8 @@ class Run:
             genc.STAGE_TIMER = None
         t_end = self.yielded[self.pictures[-1]["idx"]]
         win = self.pictures[first:]
-        last = self.quality["first"] + self.quality["count"] - 1
-        while self.pictures[-1]["idx"] < last:      # untimed
-            self.capture(next(self.gen))
+        pull_on(self.pictures, lambda: self.capture(next(self.gen)),
+                self.quality["first"] + self.quality["count"] - 1)
         self.gen.close()
         self.sync()
         self._host_planes()

@@ -11,17 +11,31 @@ A picture is right when its access unit decodes, when every sample of the
 three decoded planes equals the encoder's reconstruction (the picture the
 encoder keeps as its reference, after DLF and SAO), when its slice header
 and the stream's parameter sets say what the configuration states
-(`expect`), and when the decoder's motion field of the picture (TMVP's
-collocated source) equals the encoder's.
+(`expect`; each picture's slice type and CQP slice QP from structure.py),
+and when the decoder's motion field of the picture (TMVP's collocated
+source) equals the encoder's.
 
 Decoding is sequential, and a 1080p picture takes about a second on one
-host thread, so the pictures are decoded in contiguous chunks, one to a
-worker process, which together cover every picture. The first chunk
-starts at the stream's IDR and needs nothing but the bytes. Every later
-chunk starts from the encoder's own reconstruction and motion field of
-the picture before it, which is the previous chunk's last and which the
-previous chunk checks, so the chunks together equal one decode of the
-whole stream. The motion field is checked at every picture.
+host thread, so the pictures are decoded in contiguous chunks of decode
+order, one to a worker process, which together cover every picture. A
+chunk that starts at an IDR needs nothing but the bytes. Every other
+chunk starts from the decoded picture buffer that one decode of the whole
+stream holds as it begins the chunk's first picture, once that picture's
+slice header has pruned it: the pictures that header's reference picture
+set keeps (with reordering and several references, pictures further back
+than the one before, and future anchors), each as the encoder's own
+reconstruction and motion field, which the chunk that holds it checks,
+and the POC state that the picture before left. The slice headers alone
+give that buffer: the main process reads every picture's first slice
+header in decode order, as the decoder would, and prunes and adds as it
+does. So the chunks together equal one decode of the whole stream. The
+motion field is checked at every picture.
+
+Closed GOP only: a stream with reordering and several references (random
+access, low-delay P or B, hierarchical or not) is judged as a whole
+decode would judge it, but open-GOP random access (CRA refresh points
+with RASL pictures) is not judged, and its parameter sets are marked
+wrong.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from .bitstream.bitwriter import ebsp_to_rbsp
 from .bitstream.headers import parse_pps, parse_slice_header, parse_sps
 from .bitstream.nal import NalUnitType, split_annexb
 from .decoder.decoder import _PictureCtx
+from .structure import picture_plan
 
 _SLICES = (NalUnitType.IDR_W_RADL, NalUnitType.IDR_N_LP,
            NalUnitType.CRA_NUT, NalUnitType.TRAIL_R, NalUnitType.TRAIL_N,
@@ -70,23 +85,29 @@ def parameter_set_faults(param_sets: bytes, expect: dict) -> list[str]:
     }
     want = {k: expect[k] for k in got}
     want["tiles"] = tuple(want["tiles"])
-    return [f"{k}: stream {got[k]}, configuration {want[k]}"
-            for k in got if got[k] != want[k]]
+    out = [f"{k}: stream {got[k]}, configuration {want[k]}"
+           for k in got if got[k] != want[k]]
+    if expect["open_gop"]:
+        out.append("open-GOP random access is not judged by this check")
+    return out
 
 
-def slice_faults(hdr, idx: int, is_idr: bool, expect: dict) -> list[str]:
-    """What one slice header says against the configuration."""
+def slice_faults(hdr, pic: dict, expect: dict) -> list[str]:
+    """What one slice header says against the configuration. pic: is_idr
+    and want, the slice type and CQP slice QP (or None) that the
+    configuration states for the picture."""
     out = []
-    if hdr.is_idr != is_idr:
-        out.append(f"IDR {hdr.is_idr}, expected {is_idr}")
-    if not hdr.is_idr and hdr.slice_type != expect["inter_slice_type"]:
-        out.append(f"slice type {hdr.slice_type}")
+    want_type, want_qp = pic["want"]
+    if hdr.is_idr != pic["is_idr"]:
+        out.append(f"IDR {hdr.is_idr}, expected {pic['is_idr']}")
+    if hdr.slice_type != want_type:
+        out.append(f"slice type {hdr.slice_type}, expected {want_type}")
     if hdr.deblock_disabled == expect["deblocking"]:
         out.append(f"deblocking disabled {hdr.deblock_disabled}")
     if not hdr.is_idr and hdr.temporal_mvp != expect["tmvp"]:
         out.append(f"slice TMVP {hdr.temporal_mvp}")
-    if expect["qp"] is not None and hdr.slice_qp != expect["qp"]:
-        out.append(f"slice QP {hdr.slice_qp}, CQP {expect['qp']}")
+    if want_qp is not None and hdr.slice_qp != want_qp:
+        out.append(f"slice QP {hdr.slice_qp}, CQP {want_qp}")
     lo, hi = expect["qp_range"]
     if not lo <= hdr.slice_qp <= hi:
         out.append(f"slice QP {hdr.slice_qp} outside [{lo}, {hi}]")
@@ -108,8 +129,8 @@ def motion_equal(a: dict, b: dict) -> bool:
 
 class ChunkDecoder:
     """decoder.decode_stream's loop, one access unit at a time, which may
-    start from a given reference picture (planes and motion) instead of
-    an IDR."""
+    start from a given decoded picture buffer (planes and motion by POC)
+    and POC state instead of an IDR."""
 
     def __init__(self, param_sets: bytes):
         self.sps = self.pps = None
@@ -125,12 +146,47 @@ class ChunkDecoder:
         elif nal_type == NalUnitType.PPS_NUT:
             self.pps = parse_pps(ebsp_to_rbsp(ebsp))
 
-    def seed(self, poc: int, planes, motion: dict | None) -> None:
-        self.dpb = {poc: [np.asarray(p, np.int32).copy() for p in planes]}
-        self.motion = {} if motion is None else {poc: motion}
-        max_lsb = 1 << self.sps.log2_max_poc_lsb
-        self.prev_lsb = poc % max_lsb
-        self.prev_msb = poc - self.prev_lsb
+    def seed(self, prev_lsb: int, prev_msb: int, refs: list[dict]) -> None:
+        """The POC state and the buffer's pictures, {poc, planes, motion
+        (or None)}, that a whole decode holds at this point."""
+        self.dpb = {r["poc"]: [np.asarray(p, np.int32).copy()
+                               for p in r["planes"]] for r in refs}
+        self.motion = {r["poc"]: r["motion"] for r in refs
+                       if r["motion"] is not None}
+        self.prev_lsb, self.prev_msb = prev_lsb, prev_msb
+
+    def slice_header(self, nal_type, ebsp):
+        """One slice NAL's rbsp and header, its POC derived (and the POC
+        state moved on) as the decoder does."""
+        rbsp = ebsp_to_rbsp(ebsp)
+        hdr = parse_slice_header(rbsp, int(nal_type), self.sps, self.pps)
+        if not hdr.is_idr:
+            max_lsb = 1 << self.sps.log2_max_poc_lsb
+            lsb = hdr.poc
+            if lsb < self.prev_lsb and self.prev_lsb - lsb >= max_lsb // 2:
+                msb = self.prev_msb + max_lsb
+            elif lsb > self.prev_lsb and lsb - self.prev_lsb > max_lsb // 2:
+                msb = self.prev_msb - max_lsb
+            else:
+                msb = self.prev_msb
+            hdr.poc = msb + lsb
+            self.prev_lsb, self.prev_msb = lsb, msb
+        else:
+            self.prev_lsb = self.prev_msb = 0
+        return rbsp, hdr
+
+    def prune(self, nal_type, hdr) -> None:
+        """A picture's first slice header empties the buffer (IDR) or
+        keeps only its reference picture set."""
+        if nal_type in _IDR:
+            self.dpb.clear()
+            self.motion.clear()
+            return
+        keep = ({hdr.poc - d for d in hdr.keep_neg}
+                | {hdr.poc + d for d in hdr.keep_pos})
+        for stale in [p for p in self.dpb if p not in keep]:
+            del self.dpb[stale]
+            self.motion.pop(stale, None)
 
     def decode(self, au: bytes):
         """Decode one access unit: (frame, motion, slice headers)."""
@@ -139,37 +195,12 @@ class ChunkDecoder:
             if nal_type not in _SLICES:
                 self._param(nal_type, ebsp)
                 continue
-            rbsp = ebsp_to_rbsp(ebsp)
-            hdr = parse_slice_header(rbsp, int(nal_type), self.sps,
-                                     self.pps)
-            if not hdr.is_idr:
-                max_lsb = 1 << self.sps.log2_max_poc_lsb
-                lsb = hdr.poc
-                if (lsb < self.prev_lsb
-                        and self.prev_lsb - lsb >= max_lsb // 2):
-                    msb = self.prev_msb + max_lsb
-                elif (lsb > self.prev_lsb
-                        and lsb - self.prev_lsb > max_lsb // 2):
-                    msb = self.prev_msb - max_lsb
-                else:
-                    msb = self.prev_msb
-                hdr.poc = msb + lsb
-                self.prev_lsb, self.prev_msb = lsb, msb
-            else:
-                self.prev_lsb = self.prev_msb = 0
+            rbsp, hdr = self.slice_header(nal_type, ebsp)
             headers.append(hdr)
             if hdr.first_slice:
                 if cur is not None:
                     raise ValueError("new picture before the previous ended")
-                if nal_type in _IDR:
-                    self.dpb.clear()
-                    self.motion.clear()
-                else:
-                    keep = ({hdr.poc - d for d in hdr.keep_neg}
-                            | {hdr.poc + d for d in hdr.keep_pos})
-                    for stale in [p for p in self.dpb if p not in keep]:
-                        del self.dpb[stale]
-                        self.motion.pop(stale, None)
+                self.prune(nal_type, hdr)
                 cur = _PictureCtx(hdr, self.sps, self.pps, self.dpb,
                                   self.motion)
             elif cur is None:
@@ -186,15 +217,45 @@ class ChunkDecoder:
         return out
 
 
+def dpb_at(param_sets: bytes, pictures: list[dict], starts) -> dict:
+    """{decode position a: (prev_lsb, prev_msb, positions)} for each a in
+    starts that is not an IDR: the POC state before picture a's slice
+    header, and {poc: decode position} of the pictures that a whole
+    decode's buffer holds once a's first slice header has pruned it. Read
+    from each picture's first slice header alone. A start past a header
+    that does not parse gets nothing (its chunk then fails to decode, as
+    the whole decode would)."""
+    dec = ChunkDecoder(param_sets)
+    starts, out = set(starts), {}
+    for j, pic in enumerate(pictures):
+        state = (dec.prev_lsb, dec.prev_msb)
+        try:
+            for nal_type, ebsp in split_annexb(pic["data"]):
+                if nal_type in _SLICES:
+                    _, hdr = dec.slice_header(nal_type, ebsp)
+                    break
+                dec._param(nal_type, ebsp)
+            else:
+                raise ValueError("no slice")
+        except Exception:       # a fault of the stream, judged by its chunk
+            break
+        dec.prune(nal_type, hdr)
+        if j in starts and nal_type not in _IDR:
+            out[j] = (*state, dict(dec.dpb))
+        dec.dpb[hdr.poc] = j
+    return out
+
+
 def check_chunk(task: dict) -> dict:
     """Decode one chunk and judge each of its pictures. task: param_sets,
-    expect, seed (None, or {poc, planes, motion}) and pictures, a list of
-    {idx, is_idr, data, planes, motion (the encoder's, or None)}."""
+    expect, seed (None, or {prev_lsb, prev_msb, refs: [{poc, planes,
+    motion}]}) and pictures, a list of {idx, is_idr, want, data, planes,
+    motion (the encoder's, or None)}."""
     t0 = time.perf_counter()
     dec = ChunkDecoder(task["param_sets"])
     if task["seed"] is not None:
         s = task["seed"]
-        dec.seed(s["poc"], s["planes"], s["motion"])
+        dec.seed(s["prev_lsb"], s["prev_msb"], s["refs"])
     verdicts = []
     broken = None
     for pic in task["pictures"]:
@@ -209,8 +270,7 @@ def check_chunk(task: dict) -> dict:
                 faults.append(f"decode failed: {type(e).__name__}: {e}")
             else:
                 for hdr in headers:
-                    faults += slice_faults(hdr, pic["idx"], pic["is_idr"],
-                                           task["expect"])
+                    faults += slice_faults(hdr, pic, task["expect"])
                 for name, got, want in zip(("Y", "Cb", "Cr"),
                                            (frame.y, frame.cb, frame.cr),
                                            pic["planes"]):
@@ -264,6 +324,29 @@ def rate_control_faults(param_sets, pictures, expect, lumas) -> dict:
     return out
 
 
+def chunk_tasks(param_sets: bytes, pictures: list[dict], motions: dict,
+                expect: dict, chunks) -> list:
+    """check_chunk's task for each [start, end) chunk: its pictures, each
+    with what the configuration states for it (structure.py), and the
+    buffer and POC state a whole decode holds where it starts (dpb_at)."""
+    plan = picture_plan(expect, [p["idx"] for p in pictures if p["is_idr"]])
+    seeds = dpb_at(param_sets, pictures, [a for a, _ in chunks if a])
+    tasks = []
+    for a, b in chunks:
+        seed = None
+        if a in seeds:
+            prev_lsb, prev_msb, held = seeds[a]
+            seed = {"prev_lsb": prev_lsb, "prev_msb": prev_msb, "refs": [
+                {"poc": poc, "planes": pictures[j]["planes"],
+                 "motion": motions.get(pictures[j]["idx"])}
+                for poc, j in held.items()]}
+        pics = [dict(p, motion=motions.get(p["idx"]), want=plan(p["idx"]))
+                for p in pictures[a:b]]
+        tasks.append({"param_sets": param_sets, "expect": expect,
+                      "seed": seed, "pictures": pics})
+    return tasks
+
+
 def check_stream(param_sets: bytes, pictures: list[dict], motions: dict,
                  expect: dict, workers: int | None = None,
                  lumas=None) -> dict:
@@ -279,17 +362,7 @@ def check_stream(param_sets: bytes, pictures: list[dict], motions: dict,
     chunks = plan_chunks(len(pictures), workers)
     faults = [f"parameter sets: {f}"
               for f in parameter_set_faults(param_sets, expect)]
-    tasks = []
-    for a, b in chunks:
-        seed_pic = None
-        if not pictures[a]["is_idr"]:
-            prev = pictures[a - 1]
-            seed_pic = {"poc": prev["poc"], "planes": prev["planes"],
-                        "motion": motions.get(prev["idx"])}
-        pics = [dict(p, motion=motions.get(p["idx"]))
-                for p in pictures[a:b]]
-        tasks.append({"param_sets": param_sets, "expect": expect,
-                      "seed": seed_pic, "pictures": pics})
+    tasks = chunk_tasks(param_sets, pictures, motions, expect, chunks)
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=min(workers, len(tasks)),
                              mp_context=ctx) as pool:
