@@ -8,7 +8,17 @@ record. Nothing here names a cell, a mix or a metric.
 The window drives svt_hevc_tpu_torch's Encoder.encode_pictures, the loop
 that the CLI and api.EncoderHandle run, with one stream of frames that the
 encoder pulls as fast as it takes them (a closed loop of one client: an
-offline file encode, or a live source faster than the encoder). Set-up:
+offline file encode, or a live source faster than the encoder). The
+feed is endless, so the program may hold at most HOLD_MAX frames pulled
+and not yet yielded (Feed.i less the access units captured, checked at
+each pull). A streaming encoder holds far fewer: two at a time where it
+pipelines one picture deep, the VBR lookahead's refills of up to
+2 (la + 1) frames (502 at the largest lookahead, 250), a mini-GOP of at
+most 32, and two more in flight. A program that reads its feed to the
+end before it yields would pull frames without end until the host runs
+out of memory, and gives a live source nothing; past the bound the run
+stops with HeldFeed, and nothing is measured or checked. Every run logs
+the most frames it held. Set-up:
 imports, the kernels' and the native emitter's libraries (built into the
 checkout's build/ and native/ on a cell's first run there), the seeded
 source, then the stream's first access unit (the IDR) and SETUP_P more.
@@ -50,6 +60,7 @@ SETUP_P = 2                 # P access units in set-up, after the IDR
 PROFILE_SECONDS = 3.0       # the profiled part of a traced window
 READBACK_CHUNK = 64         # pictures of pinned host memory per block
 FORBIDDEN = ("jax", "jaxlib", "flax", "svt_hevc_tpu")
+HOLD_MAX = 1024             # frames pulled and not yet yielded, at most
 
 
 def log(msg: str) -> None:
@@ -75,8 +86,9 @@ def load_config(name: str) -> dict:
 
 def load_cell(name: str) -> dict:
     """cells/<cell>.json: the quality a cell's check holds its stream to
-    (reference/quality.py), and the faults that are its controls
-    (faults.py, control.py)."""
+    (reference/quality.py), the faults that are its controls (faults.py,
+    control.py), and jax_record, the length and sha256 of the JAX
+    package's stream of seed 7's first pictures (tests)."""
     with open(os.path.join(BENCH, "cells", f"{name}.json")) as f:
         return json.load(f)
 
@@ -138,9 +150,34 @@ def metrics_of(man: dict, cell: str, trace: bool) -> list[dict]:
             if cell in m.get("workloads", [cell])]
 
 
+class HeldFeed(RuntimeError):
+    """The program held more than HOLD_MAX frames pulled and not yet
+    yielded."""
+
+    def __init__(self, held: int, yielded):
+        super().__init__(
+            f"the program held {held} frames pulled and not yet yielded "
+            f"(bound {HOLD_MAX}); display indices yielded so far: "
+            f"{index_ranges(yielded)}")
+
+
+def index_ranges(indices) -> str:
+    """Sorted indices as runs: "0-4, 8, 10-11"; "none" if there are none."""
+    runs: list[list[int]] = []
+    for i in sorted(indices):
+        if runs and i == runs[-1][1] + 1:
+            runs[-1][1] = i
+        else:
+            runs.append([i, i])
+    return ", ".join(f"{a}-{b}" if b > a else f"{a}"
+                     for a, b in runs) or "none"
+
+
 class Feed:
     """The frames of a Source as Frame objects, made as the encoder pulls
-    them; the pull time of each. run.stamps names the making."""
+    them; the pull time of each. run.stamps names the making. A pull that
+    would leave the program holding more than HOLD_MAX frames pulled and
+    not yet yielded raises HeldFeed; held_max is the most it held."""
 
     def __init__(self, source, run):
         from svt_hevc_tpu_torch.io.yuv import Frame
@@ -149,6 +186,7 @@ class Feed:
         self.run = run
         self.pulled: dict[int, float] = {}
         self.i = 0
+        self.held_max = 0
 
     def __iter__(self):
         return self
@@ -156,6 +194,10 @@ class Feed:
     def __next__(self):
         i = self.i
         self.i += 1
+        held = self.i - len(self.run.pictures)
+        if held > HOLD_MAX:
+            raise HeldFeed(held, self.run.yielded)
+        self.held_max = max(self.held_max, held)
         self.pulled[i] = time.perf_counter()
         with self.run.stamps.stage("bench.source"):
             y, cb, cr = self.source.frame(i)
@@ -421,6 +463,8 @@ class Run:
         log(f"window {self.record['window_s']:.3f} s: "
             f"{len(win)} access units, "
             f"{self.record['idrs_in_window']} IDRs in the window")
+        log(f"held at most {self.feed.held_max} frames pulled and not yet "
+            f"yielded (bound {HOLD_MAX})")
 
     def _traced(self, genc) -> None:
         import torch

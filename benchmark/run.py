@@ -9,11 +9,18 @@ window produced against the plain reference (benchmark/reference/), and
 prints the line last on standard output; progress and the compared
 numbers with their limits go to standard error. It exits nonzero and
 prints no result where CUDA is missing or has fewer cards than the cell
-asks for, where the program cannot be imported, where JAX or the JAX
-package is loaded when the window has closed, and where a process it
-started cannot be stopped: every child (the check's workers, the
-multiprocessing resource tracker their pool starts, the compilers) has
-ended before the line is printed.
+asks for, where the program cannot be imported, where the program holds
+more than harness.HOLD_MAX (1024) frames pulled and not yet yielded,
+where JAX or the JAX package is loaded when the window has closed, and
+where a process it started cannot be stopped: every child (the check's
+workers, the multiprocessing resource tracker their pool starts, the
+compilers) has ended before the line is printed. The bound is above what
+a streaming encoder holds in any configuration the port accepts (at most
+the VBR lookahead's 502, at its largest, and two in flight); a program
+that reads the endless feed to its end before it yields would grow in
+host memory until it is killed, so the run stops at the bound, with one
+line on standard error that names it, the frames held and the display
+indices yielded so far.
 """
 
 import time
@@ -62,6 +69,9 @@ def main(argv=None) -> int:
     try:
         out = harness.execute(args.workload, args.seed, args.seconds,
                               bool(args.trace), T_START)
+    except harness.HeldFeed as e:
+        harness.log(str(e))
+        return 5
     finally:
         left = harness.stop_children()
         if left:

@@ -1,11 +1,12 @@
 """The exact check of the port's decisions, on the card: for seed 7, the
 first pictures of each cell's source, encoded by the cell's
 configuration through Encoder.encode_pictures, give the JAX package's
-stream, byte for byte (its length and sha256, data copied from the
-records that the port's bring-up made by encoding the same frames with
-the JAX package on the CPU; nothing of JAX is imported). A run's own
-check (reference/) holds every seed to the decoder and to the quality
-it expects; this holds one seed to every decision.
+stream, byte for byte (its length and sha256, each cell's `jax_record`
+in cells/<cell>.json, copied from the records that the port's bring-up
+made by encoding the same frames with the JAX package on the CPU;
+nothing of JAX is imported). A run's own check (reference/) holds every
+seed to the decoder and to the quality it expects; this holds one seed
+to every decision.
 
     python3 -m pytest benchmark/tests -q -m card
 """
@@ -16,24 +17,26 @@ import pytest
 
 import harness
 
-# cell: (pictures, bytes, sha256 of the headers and the access units)
-RECORDS = {
-    "ldp_1080p_m7_qp32.pan": (
-        64, 496981,
-        "98ce6e469a20fedd7630b062c88a33ebb8644f95ef6c4e70189e3d749b598971"),
-    "vbr10_1080p_m8.reveal": (
-        5, 233793,
-        "e488dade920658b8ef675f04a00d87c1a7e1ea80c451812fe3255c130e7db2db"),
-}
+CELLS = sorted(c["name"] for c in harness.manifest()["workloads"])
+
+
+def record(cell):
+    """(pictures, bytes, sha256 of the headers and the access units)."""
+    r = harness.load_cell(cell)["jax_record"]
+    return r["pictures"], r["bytes"], r["sha256"]
 
 
 def test_every_cell_has_a_record():
-    assert set(RECORDS) == {c["name"] for c in
-                            harness.manifest()["workloads"]}
+    for cell in CELLS:
+        assert set(harness.load_cell(cell)["jax_record"]) == {
+            "pictures", "bytes", "sha256"}
+        frames, n, sha = record(cell)
+        assert frames > 0 and n > 0
+        assert len(sha) == 64 and int(sha, 16) >= 0
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", sorted(RECORDS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_seed_7_prefix_is_the_jax_packages_stream(card, cell):
     from frames import Source, load_mix
     from svt_hevc_tpu_torch import Encoder
@@ -42,7 +45,7 @@ def test_seed_7_prefix_is_the_jax_packages_stream(card, cell):
     todo = [k for k in kernels.KERNELS if k.stale()]
     if todo:
         kernels.build_all(todo)
-    frames, n, sha = RECORDS[cell]
+    frames, n, sha = record(cell)
     c = harness.entry(harness.manifest()["workloads"], cell)
     cfg = harness.encoder_config(harness.load_config(c["config"]))
     src = Source(load_mix(c["traffic"]), cfg.width, cfg.height,
