@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases (one line each, with seconds; any failure exits nonzero). The
+Phases (one line each, with seconds; any failure exits nonzero; a line
+of a phase that ran fused P chains in the main process ends with how
+many, how many of them were replayed from a recorded script, and the
+scripts recorded, and each variant's card worker prints the same). The
 timed card phases (kernels, kernels_uhd, main, ra, cli_1080p,
 host_1080p, leaves_1080p, bd_1080p, uhd_2160p, uhd_4320p_vbr) run
 first, and each holds its whole stream to the JAX package's bytes and
@@ -468,7 +471,30 @@ ALU_OPS_PER_S = 67e12
 _BENCH_TOOL = None
 
 
+_PCHAIN_SEEN: dict = {}
+
+
+def _p_chain_note() -> str:
+    """The fused P chains of this process since the last call: run, of
+    them replayed from a recorded script, and scripts recorded
+    (gpu.encode.PCHAIN; empty before the port is imported)."""
+    genc = sys.modules.get("svt_hevc_tpu_torch.gpu.encode")
+    if genc is None:
+        return ""
+    now = dict(genc.PCHAIN)
+    d = {k: v - _PCHAIN_SEEN.get(k, 0) for k, v in now.items()}
+    _PCHAIN_SEEN.update(now)
+    if not d["runs"]:
+        return ""
+    return (f" [P chains {d['runs']}, replayed {d['graph_runs']}, "
+            f"scripts recorded {d['captures']}]")
+
+
 def log(msg: str) -> None:
+    """Print one line; a phase line of this process ends with its fused P
+    chains' script counts (_p_chain_note)."""
+    if msg.startswith("phase "):
+        msg += _p_chain_note()
     print(msg, flush=True)
 
 
@@ -1249,8 +1275,11 @@ def card_variant(i: int) -> bytes:
     """Phase variants' card encode of VARIANTS[i] (in a card worker):
     decode == recon; returns the stream."""
     kw, n = VARIANTS[i]
+    _p_chain_note()
     hdr, aus = _encode(make_frames(n, 512, 256, seed=11), 512, 256, "cuda",
                        **kw)
+    log(f"variant {_variant_name(kw)} (card worker):"
+        f"{_p_chain_note() or ' no P chain'}")
     s_gpu = hdr + b"".join(a.data for a in aus)
     _decodes_to_recon(s_gpu, aus, f"variant {_variant_name(kw)}")
     return s_gpu

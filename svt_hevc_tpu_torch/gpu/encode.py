@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from .chain_script import recorder
 from ..core.inter import CHROMA_FILTERS, LUMA_FILTERS
 from ..core.quant import INV_QUANT_SCALES, QUANT_SCALES
 from ..core.transforms import DCT
@@ -111,11 +112,22 @@ _LAM_SSE_P = np.array([
 # outside the tracer's span (the benchmark's two stage timers set it).
 STAGE_TIMER = None
 
+# Fused P chains run through PChainScripts (gpu/chain_script.py), those
+# whose outputs came from replaying a recorded script, and scripts
+# recorded, since the caller last zeroed them: graph_runs / runs is the
+# share of P pictures replayed (0 on the CPU).
+PCHAIN = {"runs": 0, "graph_runs": 0, "captures": 0}
+
 
 def stage(name: str, wait: bool = False):
     """Context of one named stage ("p.dense_md_p", "i.download", ...): a
     span of the running trace.Tracer, inside STAGE_TIMER's stage where the
-    hook is set. wait: the host blocks on the device inside it."""
+    hook is set. wait: the host blocks on the device inside it. While a
+    P-chain script is recorded on this thread, a mark of the script
+    instead (its spans are entered when the script is replayed)."""
+    rec = recorder()
+    if rec is not None:
+        return rec.mark(name, wait)
     t = STAGE_TIMER
     if t is None:
         return trace.span(name, wait)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.intra import INTRA_PRED_ANGLE, INV_ANGLE, _filter_flag
+from .cublas import clear_cublas_workspaces
 
 # Wavefront passes run, (diagonal, slot) steps they took, steps replayed
 # from a captured CUDA graph and graphs captured, since the caller last
@@ -352,8 +353,10 @@ def _run_steps(step, n: int, dev: torch.device) -> None:
     # and is not held after it. The call is private to PyTorch and frees
     # the workspaces of every stream in the process (the next matmul on a
     # stream makes its own again); tests/test_torch_wavefront_graph.py
-    # holds on the card that a pass keeps nothing allocated.
-    torch._C._cuda_clearCublasWorkspaces()
+    # holds on the card that a pass keeps nothing allocated. The clears
+    # take cublas.CUBLAS_LOCK: none falls inside another thread's P-chain
+    # recording.
+    clear_cublas_workspaces()
     try:
         with torch.cuda.stream(stream):
             step()
@@ -371,7 +374,7 @@ def _run_steps(step, n: int, dev: torch.device) -> None:
             for _ in range(n - 1):
                 graph.replay()
     finally:
-        torch._C._cuda_clearCublasWorkspaces()
+        clear_cublas_workspaces()
     cur.wait_stream(stream)
     home[1] = graph
     WAVEFRONT["captures"] += 1

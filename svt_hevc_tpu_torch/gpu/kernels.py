@@ -13,8 +13,13 @@ Beside each kernel sits its plain PyTorch version (``sad_field_ref``,
 ``mc_block_ref``, ``ordered_sum_ref``). A wrapper takes the plain version
 only for tensors that lie on the CPU; for a CUDA tensor it launches the
 kernel or raises. Every launch adds one to the kernel's ``launches``
-count. The build runs ptxas verbosely; each kernel keeps its compiler
-output (registers, shared memory, spills) in ``build_log``.
+count. While a P-chain script is recorded (gpu/chain_script.py),
+``mc_block`` launches nothing: it hands its arguments to the recording,
+and each replay of the script makes the launch, through
+``MC_BLOCK.launch``. K2 is the one hand-written kernel the chain
+launches. The build runs ptxas
+verbosely; each kernel keeps its compiler output (registers, shared
+memory, spills) in ``build_log``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import time
 from typing import NamedTuple
 
 import torch
+
+from .chain_script import recorder
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -368,12 +375,18 @@ def mc_block(ref_ext, sy, sx, fx, fy, n: int, taps: int, pad: int,
     n_planes = ref_ext.shape[0] if ref_ext.dim() == 3 else 1
     n_fields = maps[0].shape[0] if maps[0].dim() == 3 else 1
     out = torch.empty(shape, dtype=torch.int32, device=ref_ext.device)
+    args = (ref_ext.data_ptr(), n_planes, hp, wp,
+            *(t.data_ptr() for t in maps), out.data_ptr(), n_fields, nby,
+            nbx, n, taps, bit_depth - 8, (14 - bit_depth) if rounded else 0,
+            (1 << bit_depth) - 1)
+    rec = recorder()
+    if rec is not None:
+        # a P-chain script is being recorded: the launch is made when the
+        # script is replayed, on the replaying stream
+        rec.launch(MC_BLOCK, args)
+        return out
     with torch.cuda.device(ref_ext.device):
-        MC_BLOCK.launch(ref_ext.data_ptr(), n_planes, hp, wp,
-                        *(t.data_ptr() for t in maps), out.data_ptr(),
-                        n_fields, nby, nbx, n, taps, bit_depth - 8,
-                        (14 - bit_depth) if rounded else 0,
-                        (1 << bit_depth) - 1, _stream(ref_ext.device))
+        MC_BLOCK.launch(*args, _stream(ref_ext.device))
     return out
 
 

@@ -85,6 +85,6 @@ def dispatch_leaf_batch(enc, feat, items):
         st = PictureState(cw, ch, it["qp"], cfg.ctb_log2, cfg.bit_depth,
                           chroma_format=cfg.chroma_format)
         outs.append(run_fast_p(cfg, feat, st, it["qp"], mv, src, ref, col,
-                               tb, td))
+                               tb, td, enc._p_scripts))
     # every lane is queued; now bring the outputs to the encoder's device
     return [_to(o, enc.device) for o in outs]

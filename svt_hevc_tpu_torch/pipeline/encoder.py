@@ -62,6 +62,7 @@ from ..core.ctu import CtuEncoder, PictureState
 from ..core.deblock import deblock_picture
 from ..core.rdo import RdSearch, lambda_sse
 from ..core.sao import apply_sao, derive_sao_params, encode_sao_ctb
+from ..gpu.chain_script import PChainScripts
 from ..io.yuv import Frame
 from ..native import cabac_encode_ops
 from ..preset import derive_preset
@@ -277,6 +278,8 @@ class Encoder:
         # (raised to 2 * lanes + 2 while leaf lanes are active: a queued
         # leaf's collocated motion must survive until its group flushes)
         self._dev_motion_cap = 6
+        # the fused P chain's kept replay script (gpu/chain_script.py)
+        self._p_scripts = PChainScripts()
         self._poc_base = 0
         # dynamic preset of speed control (set_speed_control): enc_mode
         # floats in [cfg.enc_mode, 11], adjusted after each picture
@@ -800,7 +803,7 @@ class Encoder:
                     col_poc, poc, refs_l0[0][1], w64, h64, self.device)
                 packed, rec_dev, mot_dev, lv_dev = run_fast_p(
                     cfg, feat, st, qp, mv_dev, src_dev, ref_dev, col_dev,
-                    tb, td)
+                    tb, td, self._p_scripts)
             if not non_ref:
                 if is_idr:
                     self._dev_motion.clear()
@@ -1075,13 +1078,15 @@ class Encoder:
         decode order, without the parameter-set headers. Random access
         yields each access unit as it is encoded (not pipelined). When the
         stream ends or is closed, the intra wavefront's kept CUDA graphs
-        are dropped (gpu.intra_pass.release_graphs)."""
+        are dropped (gpu.intra_pass.release_graphs), and so is this
+        encoder's P-chain script."""
         from ..gpu import intra_pass
         try:
             yield from self._encode_pictures(frames, rd=rd,
                                              frame_qps=frame_qps)
         finally:
             intra_pass.release_graphs()
+            self._p_scripts.release()
 
     def _encode_pictures(self, frames, *, rd, frame_qps):
         from .rate_control import RateControl

@@ -335,17 +335,18 @@ def _lam32(qp: int) -> float:
 
 
 def run_fast_p(cfg, feat, st, qp, mv_dev, src_dev, ref_dev, col_dev,
-               tb, td):
+               tb, td, scripts):
     """Device stages for one P picture (dense MD, quadtree decision,
     merge alignment, encode pass, DLF, SAO, pack).
 
     src_dev / ref_dev: (y, cb, cr) device int32 planes, 64-aligned; the
     references stay device-resident between frames. mv_dev: device HME
     field. col_dev: the collocated picture's device motion, or None.
+    scripts: the encoder's gpu.chain_script.PChainScripts, through which
+    the chain runs (eagerly, or recorded once and replayed where it may
+    be).
     Returns (packed, recon planes, this picture's 16x16 motion, full level
     planes) as device tensors; nothing is downloaded here."""
-    from ..gpu import encode as genc
-
     cw, ch = st.w, st.h
     w64 = (cw + 63) // 64 * 64
     h64 = (ch + 63) // 64 * 64
@@ -358,9 +359,9 @@ def run_fast_p(cfg, feat, st, qp, mv_dev, src_dev, ref_dev, col_dev,
     else:
         col_mv, col_valid = col_dev
     (packed, rec_y, rec_cb, rec_cr, out_mv, out_valid,
-     lv_dev) = genc.fast_p_fused_dev(
-            *src_dev, *ref_dev, mv_dev, int(qp), int(st.qp_c), _lam32(qp),
-            col_mv, col_valid, int(tb), int(td),
+     lv_dev) = scripts.run(
+            src_dev, ref_dev, mv_dev, int(qp), int(st.qp_c), _lam32(qp),
+            col_mv, col_valid, int(tb), int(td), col_none=col_dev is None,
             ctb_log2=st.ctb_log2, w=cw, h=ch, bit_depth=st.bit_depth,
             dlf=cfg.enable_deblocking, sao=cfg.enable_sao,
             min_intra_log2=feat.p_min_intra_log2,

@@ -28,8 +28,8 @@ which synchronises once and places them on the host clock through an
 anchor event that start() records on an idle device. stop() returns
 plain data: {"device", "spans", "counters" (the program's own, e.g.
 "la.frames"), "deltas" (over the traced interval, of the counters the
-program already keeps: every CudaKernel's launches and
-gpu.intra_pass.WAVEFRONT)}.
+program already keeps: every CudaKernel's launches,
+gpu.intra_pass.WAVEFRONT and gpu.encode.PCHAIN)}.
 
 While no Tracer runs, span() and picture() return one shared
 nullcontext after reading a global, and count() returns at once.
@@ -78,12 +78,16 @@ def count(name: str, n: int = 1) -> None:
 def existing_counters() -> dict:
     """The counters the program keeps whether or not a tracer runs:
     {"launches": {kernel: n}, "wavefront": {"runs": n, "steps": n,
-    "graph_steps": n, "captures": n}} (graph_steps: the wavefront steps
+    "graph_steps": n, "captures": n}, "p_chain": {"runs": n,
+    "graph_runs": n, "captures": n}} (graph_steps: the wavefront steps
     replayed from a captured CUDA graph; captures: the graphs captured,
-    each inside a "wf.capture" span)."""
-    from .gpu import intra_pass, kernels
+    each inside a "wf.capture" span; graph_runs: the fused P chains
+    replayed from a recorded script; p_chain captures: the scripts
+    recorded, each inside a "p.capture" span)."""
+    from .gpu import encode, intra_pass, kernels
     return {"launches": {k.name: k.launches for k in kernels.KERNELS},
-            "wavefront": dict(intra_pass.WAVEFRONT)}
+            "wavefront": dict(intra_pass.WAVEFRONT),
+            "p_chain": dict(encode.PCHAIN)}
 
 
 class _Span:

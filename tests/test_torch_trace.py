@@ -132,10 +132,14 @@ def test_parents_nest_stages_under_dispatch_and_complete(cqp):
 
 def test_counter_deltas_are_the_program_counters_over_the_interval(cqp):
     base, after, out = cqp["base"], cqp["after"], cqp["out"]
-    for group in ("launches", "wavefront"):
+    for group in ("launches", "wavefront", "p_chain"):
         assert out["deltas"][group] == {
             k: after[group][k] - base[group][k] for k in after[group]}
     assert out["deltas"]["wavefront"]["runs"] == 1      # the IDR's
+    # every P picture's chain, none of them replayed on the CPU
+    assert out["deltas"]["p_chain"]["runs"] > 0
+    assert out["deltas"]["p_chain"]["graph_runs"] == 0
+    assert out["deltas"]["p_chain"]["captures"] == 0
     # on the CPU every step runs eagerly: no graph
     assert out["deltas"]["wavefront"]["graph_steps"] == 0
     assert out["deltas"]["wavefront"]["captures"] == 0
@@ -321,6 +325,27 @@ def test_cell_tool_reads_the_wavefront_graph_share(wavefront, share):
     deltas = {} if wavefront is None else {"wavefront": wavefront}
     prog = {"spans": [], "counters": {}, "deltas": deltas}
     assert tool.wavefront_graph_share(prog) == share
+
+
+@pytest.mark.parametrize("p_chain,share", [
+    (None, None), ({"runs": 0, "graph_runs": 0, "captures": 0}, None),
+    ({"runs": 120, "graph_runs": 119, "captures": 0}, 119 / 120),
+    ({"runs": 64, "graph_runs": 0, "captures": 0}, 0.0)])
+def test_cell_tool_reads_the_p_chain_graph_share(p_chain, share):
+    tool = cell_tool()
+    deltas = {} if p_chain is None else {"p_chain": p_chain}
+    prog = {"spans": [], "counters": {}, "deltas": deltas}
+    assert tool.p_chain_graph_share(prog) == share
+
+
+def test_cell_tool_sums_the_p_chain_recordings():
+    tool = cell_tool()
+    prog = {"spans": [span("p.capture", 3, 0, 400 * MS),
+                      span("p.dense_md_p", 3, 10, 40)],
+            "counters": {}, "deltas": {}}
+    assert tool.p_capture(prog) == {"n": 1, "ms": pytest.approx(400.0)}
+    assert tool.p_capture({"spans": [], "counters": {}, "deltas": {}}) == {
+        "n": 0, "ms": 0.0}
 
 
 def test_cell_tool_gives_idle_to_the_innermost_span():

@@ -1,14 +1,14 @@
 """A benchmark cell's card memory: allocated, requested and reserved.
 
     python3 tools/torch_card_memory.py --workload <cell> --seed <n> \
-        [--pictures 10] [--tree DIR]
+        [--pictures 10] [--tree DIR] [--dims WxH]
 
 On a machine with a CUDA card. Runs the cell's set-up (benchmark/
 harness.Run: its source, the IDR and two P pictures) and then --pictures
 more pictures through the same Encoder.encode_pictures, with no window
 timing and no check, from the checkout DIR (default: this one; give
-another checkout to measure its port with the same harness). Prints one
-JSON line:
+another checkout to measure its port with the same harness), at the
+cell's picture size or --dims (e.g. 3840x2160). Prints one JSON line:
 
   max_alloc, max_requested   torch.cuda.max_memory_allocated() (what the
                              benchmark's peak_mem_gib reads) and the peak
@@ -23,6 +23,14 @@ JSON line:
                              the stream open
   reserved_closed,           torch.cuda.memory_reserved() once the stream
   reserved_emptied           is closed, and after torch.cuda.empty_cache()
+  pools                      with the stream open, the bytes reserved in
+                             each private memory pool (CUDA graphs), by
+                             pool id
+  p_chain_pool               the encoder's kept P-chain script
+                             (gpu/chain_script.py): its pool's reserved
+                             and allocated bytes (the static outputs and
+                             what the graphs hold) and its static input
+                             buffers' bytes; null where none is kept
   peak_rises                 the last 8 rises of max_alloc, each at the
                              exit of the innermost program span
                              (gpu.encode.stage / trace.span) open when it
@@ -46,13 +54,40 @@ import sys  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def pool_bytes(enc) -> dict:
+    """The private pools' reserved bytes, and the kept P-chain script's
+    pool and static inputs (none in a tree without scripts)."""
+    import torch
+    pools: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id") or (0, 0))
+        if pid != (0, 0):
+            row = pools.setdefault(pid, [0, 0])
+            row[0] += seg["total_size"]
+            row[1] += seg["allocated_size"]
+    script = getattr(getattr(enc, "_p_scripts", None), "script", None)
+    mine = None
+    if script is not None:
+        got = pools.get(tuple(script.pool), [0, 0])
+        static = (*script.src, *script.ref, script.hme, *script.col)
+        mine = {"pool": list(script.pool), "reserved": got[0],
+                "allocated": got[1],
+                "static_in": sum(t.numel() * t.element_size()
+                                 for t in static)}
+    return {"pools": {str(list(k)): v[0] for k, v in pools.items()},
+            "p_chain_pool": mine}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--pictures", type=int, default=10)
     ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--dims", default=None, metavar="WxH")
     args = ap.parse_args(argv)
+    dims = (tuple(int(v) for v in args.dims.split("x")) if args.dims
+            else None)
     tree = os.path.abspath(args.tree)
     os.chdir(tree)
     for p in (tree, os.path.join(tree, "benchmark")):
@@ -92,7 +127,8 @@ def main(argv=None) -> int:
 
     trace.span = Probe
     try:
-        run = harness.Run(args.workload, args.seed, 1.0, False, T_START)
+        run = harness.Run(args.workload, args.seed, 1.0, False, T_START,
+                          dims=dims)
         run.setup()
         for _ in range(args.pictures):
             run.capture(next(run.gen))
@@ -105,6 +141,7 @@ def main(argv=None) -> int:
                "max_requested": requested("peak"),
                "max_reserved": torch.cuda.max_memory_reserved(),
                "used_open": total - free}
+        res.update(pool_bytes(run.enc))
         run.gen.close()
         torch.cuda.synchronize()
         res["reserved_closed"] = torch.cuda.memory_reserved()

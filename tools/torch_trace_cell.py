@@ -17,7 +17,11 @@ It prints the run's result line, then one JSON line {"program": ...}
 with the quantities of program_metrics() below and the profiled part's
 idle seconds by the innermost program span open there ("idle_by_span";
 "bench.capture" where only the benchmark's own stamp is open, null where
-nothing is).
+nothing is). A second tracer runs over the set-up alone; the line's
+"p_capture_setup" counts the P-chain scripts recorded there ("p.capture"
+spans) and their host milliseconds, "p_capture" those of the window,
+and "p_chain_graph_share" is the share of the window's P chains replayed
+from a script.
 
 --on-cost: instead, the cell's set-up (its source, the IDR and two P
 pictures), then 2 x PAIRS blocks of --pictures pictures each through the
@@ -177,6 +181,22 @@ def wavefront_graph_share(prog):
     return wf.get("graph_steps", 0) / steps if steps else None
 
 
+def p_chain_graph_share(prog):
+    """The fused P chains replayed from a recorded script over all the P
+    chains run (gpu.encode.PCHAIN deltas)."""
+    pc = prog["deltas"].get("p_chain", {})
+    runs = pc.get("runs", 0)
+    return pc.get("graph_runs", 0) / runs if runs else None
+
+
+def p_capture(prog) -> dict:
+    """The P-chain scripts recorded ("p.capture" spans): how many, and
+    their host milliseconds in all."""
+    caps = [s for s in prog["spans"] if s["name"] == "p.capture"]
+    return {"n": len(caps), "ms": sum(_ms(s["host_ns"]) or 0.0
+                                      for s in caps)}
+
+
 def program_metrics(tr: dict) -> dict:
     """The traced record's quantities (tr: record["trace"] with
     "program", "part1_ns", "idle_ns" and the stamps "stamps_ns")."""
@@ -190,6 +210,8 @@ def program_metrics(tr: dict) -> dict:
         "host_wait_ms": host_wait_ms(prog, tr["part1_ns"]),
         "idle_launching_pct": idle_launching_pct(by_span),
         "wavefront_graph_share": wavefront_graph_share(prog),
+        "p_chain_graph_share": p_chain_graph_share(prog),
+        "p_capture": p_capture(prog),
         "idle_s": sum(by_span.values()),
         "idle_by_span": {str(k): v for k, v in sorted(
             by_span.items(), key=lambda kv: -kv[1])},
@@ -205,6 +227,17 @@ def traced_run_class(harness):
 
     class TracedRun(harness.Run):
         last = None
+        setup_capture = None
+
+        def setup(self):
+            # a tracer over the set-up too, for the P-chain recording
+            # made there (p.capture)
+            tr = trace.Tracer(self.device).start()
+            try:
+                super().setup()
+            finally:
+                prog = tr.stop()
+            self.setup_capture = p_capture(prog)
 
         def _traced(self, genc):
             TracedRun.last = self
@@ -309,8 +342,9 @@ def main(argv=None) -> int:
                          "--trace", "1"])
     last = harness.Run.last
     if rc == 0 and last is not None:
-        print(json.dumps({"program": program_metrics(
-            last.record["trace"])}), flush=True)
+        out = program_metrics(last.record["trace"])
+        out["p_capture_setup"] = last.setup_capture
+        print(json.dumps({"program": out}), flush=True)
     return rc
 
 
